@@ -4,16 +4,30 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
 
 1. prints the card (``nvidia-smi``), the torch and CUDA versions, and turns
    TF32 off for matmuls and cuDNN (the port's GEMMs run in full f32);
-2. builds the CUDA kernels from ``gsum_tpu_torch/csrc`` with nvcc;
-3. holds the diagonal-block kernel ``chol_inv_block`` against its plain
-   PyTorch version and an f64 factor at nb in {32, 128, 256, 512}, B in
-   {1, 16}, and checks that a non-SPD block is flagged;
-4. drives the main path once, ``ops.batched_chol_logpdf`` at the headline
-   size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), counts the kernel's
-   launches in that run, and holds the result against an f64 reference
-   pipeline and against the same pipeline with the plain diagonal engine;
-5. times the pipeline and the kernel against its plain version with CUDA
-   events (medians of 6 samples taken in alternating order).
+2. builds the CUDA kernels from ``gsum_tpu_torch/csrc`` with nvcc (one
+   process per source, all at once) and prints their register counts;
+3. holds each kernel against its plain PyTorch version:
+   - ``chol_inv_block`` (K1) and an f64 factor at nb in {32, 128, 256, 512},
+     B in {1, 16}, and checks that a non-SPD block is flagged;
+   - ``rbf_covariance_pallas`` (K2) at (16, 4096, 2) and (3, 1000, 3) f32
+     and (2, 512, 1) f64;
+   - ``fused_blocked_cholesky`` (K3) and an f64 factor at (2, 1024) and
+     (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
+4. drives the three paths once each, with every kernel's launch count set
+   to 0 just before and read just after:
+   - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
+     headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
+     f64 reference pipeline and the same route with the plain diagonal
+     engine;
+   - the same pipeline with ``method='fused'``, against the f64 reference
+     and the blocked route;
+   - ``ops.rbf_covariance_pallas`` at B=16, N=4096, d=2, against its plain
+     version and an f64 build;
+5. times the pipelines, and each kernel against its plain version and the
+   library call that computes the same function, with CUDA events (medians
+   of 6 samples taken in alternating order);
+6. profiles each headline pipeline once with ``torch.profiler``: device
+   time by kernel and the device's idle share.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -34,8 +48,16 @@ B, N, D, M = 16, 4096, 2, 8          # bench.py's headline configuration
 LS, AMP, NOISE = 0.25, 1.0, 1e-2
 NB_CHECK = (32, 128, 256, 512)
 REL_TOL = 1e-3                       # f32 pipeline vs f64, and vs plain diag
-KERNEL_SOURCE = 'gsum_tpu_torch/csrc/chol_inv_block.cu'
-KERNEL_REPLACES = 'gsum_tpu/ops/pallas_chol.py:42'
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
+KERNELS = {
+    'chol_inv_block': ('gsum_tpu_torch/csrc/chol_inv_block.cu',
+                       'gsum_tpu/ops/pallas_chol.py:42'),
+    'fused_blocked_cholesky': ('gsum_tpu_torch/csrc/fused_chol.cu',
+                               'gsum_tpu/ops/fusedchol.py:147'),
+    'rbf_covariance_pallas': ('gsum_tpu_torch/csrc/rbf_cov.cu',
+                              'gsum_tpu/ops/pallas_cov.py:27'),
+}
 
 
 def flops_chol_logpdf(B, N, d, m):
@@ -45,6 +67,41 @@ def flops_chol_logpdf(B, N, d, m):
     chol = B * (N ** 3) / 3.0
     solve = B * (2.0 * N * N * m)
     return cov + chol + solve
+
+
+def bound(nbytes, flops):
+    """Least time in ms on the card for this many bytes moved and f32
+    operations done, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def bound_chol_inv(b, nb):
+    """K1: reads A's lower triangle, writes L and L⁻¹ (upper triangles
+    zeroed); nb³/3 flops for L, nb³/3 for L⁻¹."""
+    return bound(4 * b * (nb * (nb + 1) // 2 + 2 * nb * nb),
+                 b * 2.0 * nb ** 3 / 3)
+
+
+def bound_rbf(b, n, d):
+    """K2: reads X, writes K; 3d flops of differences and squares and 3 for
+    the scale, exp and amplitude per element."""
+    return bound(4 * (b * n * d + b * n * n), b * n * n * (3.0 * d + 3))
+
+
+def flops_fused(b, n, blk):
+    """K3's work as the function needs it, not as the kernel's algorithm
+    does it: a Cholesky factor (n³/3) and the inverses of its n/blk
+    triangular diagonal blocks (blk³/3 each), for each of b matrices."""
+    return b * (n ** 3 / 3.0 + (n // blk) * blk ** 3 / 3.0)
+
+
+def bound_fused(b, n, blk):
+    """K3: reads K's lower triangle, writes L's lower triangle and the
+    diagonal-block inverses."""
+    tri = n * (n + 1) // 2
+    return bound(4 * b * (2 * tri + n * blk), flops_fused(b, n, blk))
 
 
 def card_line():
@@ -84,6 +141,22 @@ def spd_blocks(rng, b, nb, device):
     return torch.tensor(K, dtype=torch.float32, device=device)
 
 
+def spd_device(b, n, device, seed):
+    """(b, n, n) f32 ``A Aᵀ/n + I`` from a seeded generator on the card
+    (condition number below 5); only the lower triangle is read."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn(b, n, n, device=device, generator=gen)
+    K = torch.matmul(A, A.transpose(-1, -2)).div_(n)
+    K.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    return K
+
+
+def flagged(L):
+    """Per matrix: True where the factor's diagonal is finite and positive."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    return (torch.isfinite(d) & (d > 0)).all(-1).tolist()
+
+
 def check_kernel(rng, device):
     from gsum_tpu_torch.ops import chol_inv_block, chol_inv_block_plain
 
@@ -111,12 +184,80 @@ def check_kernel(rng, device):
 
             K[-1, 5, 5] = -1.0
             L, _ = chol_inv_block(K)
-            d = torch.diagonal(L, dim1=-2, dim2=-1)
-            ok = (torch.isfinite(d) & (d > 0)).all(-1).tolist()
+            ok = flagged(L)
             torch.cuda.synchronize()
             if ok != [True] * (b - 1) + [False]:
                 raise AssertionError(f'non-SPD block not flagged at nb={nb} '
                                      f'B={b}: {ok}')
+
+
+def check_rbf(device):
+    """K2 against its plain version: the same direct-difference form, so
+    they differ by the rounding of exp and of a fused multiply-add; values
+    are at most amp + noise = 1.01."""
+    from gsum_tpu_torch.ops import (rbf_covariance_pallas,
+                                    rbf_covariance_pallas_plain)
+
+    rng = np.random.RandomState(1)
+    for shape, dtype, atol in (((B, N, D), torch.float32, 1e-6),
+                               ((3, 1000, 3), torch.float32, 1e-6),
+                               ((2, 512, 1), torch.float64, 1e-14)):
+        X = torch.tensor(rng.rand(*shape), dtype=dtype, device=device)
+        before = rbf_covariance_pallas.launches
+        K = rbf_covariance_pallas(X, LS, AMP, NOISE)
+        torch.cuda.synchronize()
+        launched = rbf_covariance_pallas.launches - before
+        err = (K - rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
+               ).abs().max().item()
+        print(f'rbf_covariance_pallas {shape} {dtype}: max |K-Kplain| '
+              f'{err:.3e} (limit {atol:g}), launches {launched}')
+        if launched != 1 or not err <= atol:
+            raise AssertionError(f'rbf_covariance_pallas disagrees at {shape}')
+        del K
+
+
+def check_fused(device):
+    """K3 against its plain version and an f64 factor, on well-conditioned
+    matrices: tril(L) within 1e-5·max|L| of the f64 factor and 2e-5·max|L|
+    of the plain version, L_kk·minvs[k] = I to 1e-4, one launch per call."""
+    from gsum_tpu_torch.ops import (fused_blocked_cholesky,
+                                    fused_blocked_cholesky_plain)
+
+    for b, n in ((2, 1024), (B, N)):
+        K = spd_device(b, n, device, seed=n)
+        before = fused_blocked_cholesky.launches
+        L, minvs = fused_blocked_cholesky(K)
+        torch.cuda.synchronize()
+        launched = fused_blocked_cholesky.launches - before
+        L.tril_()
+        Lp, _ = fused_blocked_cholesky_plain(K)
+        err_plain = (L - Lp).abs().max().item()
+        del Lp
+        Lref = torch.linalg.cholesky(K.double())
+        scale = Lref.abs().max().item()
+        err_ref = (L.double() - Lref).abs().max().item() / scale
+        del Lref
+        blk = minvs.shape[-1]
+        eye = torch.eye(blk, dtype=torch.float64, device=device)
+        resid = max((L[:, k * blk:(k + 1) * blk, k * blk:(k + 1) * blk]
+                     .double() @ minvs[:, k].double() - eye).abs().max().item()
+                    for k in range(n // blk))
+        print(f'fused_blocked_cholesky B={b} N={n} block={blk}: '
+              f'|L-L64|/max|L|={err_ref:.3e} |L-Lplain|/max|L|='
+              f'{err_plain / scale:.3e} max|Lkk Mk - I|={resid:.3e} '
+              f'launches {launched}')
+        if not (launched == 1 and err_ref < 1e-5
+                and err_plain < 2e-5 * scale and resid < 1e-4):
+            raise AssertionError(f'fused kernel disagrees at B={b} N={n}')
+        del L, minvs
+
+    K = spd_device(2, 1024, device, seed=1)
+    K[-1, 5, 5] = -1.0
+    L, _ = fused_blocked_cholesky(K, tril=True)
+    ok = flagged(L)
+    if ok != [True, False] or not torch.isfinite(L[0]).all():
+        raise AssertionError(f'non-SPD matrix not flagged by the fused '
+                             f'kernel: {ok}')
 
 
 def reference_logpdf(X, y):
@@ -139,13 +280,55 @@ def max_rel(a, b):
     return ((a.double() - b.double()).abs() / b.double().abs()).max().item()
 
 
+def drive(fn):
+    """Runs ``fn`` once with every kernel's launch count set to 0 just
+    before; returns its result and the counts read just after."""
+    from gsum_tpu_torch import ops
+
+    counters = {name: getattr(ops, name) for name in KERNELS}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in counters.items()}
+
+
+def profile(label, fn):
+    """One torch.profiler window over ``fn`` (after a warm-up call): device
+    time by kernel, and the share of the window with no kernel running."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == 'CUDA']
+    busy = sum(ms for _, ms, _ in rows)
+    print(f'profile {label}: window {window:.3f} ms, device busy '
+          f'{busy:.3f} ms, idle share {max(0.0, 1 - busy / window):.1%}')
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f'  {ms:9.3f} ms  x{count:4d}  {key[:90]}')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this check needs a CUDA card')
     from gsum_tpu_torch import _build
     from gsum_tpu_torch.ops import (batched_chol_logpdf, chol_inv_block,
-                                    chol_inv_block_plain)
+                                    chol_inv_block_plain,
+                                    fused_blocked_cholesky,
+                                    fused_blocked_cholesky_plain,
+                                    rbf_covariance, rbf_covariance_pallas,
+                                    rbf_covariance_pallas_plain)
 
     device = torch.device('cuda:0')
     card = card_line()
@@ -163,70 +346,163 @@ def main():
     _build.load()
     print(f'build: {time.perf_counter() - t0:.1f} s -> {path.name}')
     for line in log.splitlines():
-        if 'registers' in line or 'spill' in line or 'smem' in line:
+        if ('Compiling entry' in line or 'registers' in line
+                or 'spill' in line):
             print('  ' + line.strip())
 
     rng = np.random.RandomState(0)
     check_kernel(rng, device)
+    check_rbf(device)
+    check_fused(device)
     print('kernel checks passed')
 
     rng = np.random.RandomState(0)   # bench.py's inputs
     X = torch.tensor(rng.rand(B, N, D), dtype=torch.float32, device=device)
     y = torch.tensor(rng.randn(B, N, M), dtype=torch.float32, device=device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    chol_inv_block.launches = 0
-    out = batched_chol_logpdf(X, y, LS, AMP, NOISE, method='auto')
-    torch.cuda.synchronize()
-    launches = chol_inv_block.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'main path: batched_chol_logpdf B={B} N={N} d={D} m={M} f32: '
-          f'chol_inv_block launches={launches} peak memory {peak_gib:.2f} GiB')
-    if launches != N // 128:         # one per diagonal block of 128
-        raise AssertionError(f'expected {N // 128} kernel launches, got '
-                             f'{launches}')
-    if out.shape != (B, M) or not torch.isfinite(out).all():
-        raise AssertionError(f'bad output: shape {tuple(out.shape)}, finite '
-                             f'{torch.isfinite(out).all().item()}')
+
     def pipeline(**kw):
         return lambda: batched_chol_logpdf(X, y, LS, AMP, NOISE, **kw)
 
+    # path 0: the blocked route
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = drive(pipeline(method='auto'))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'main path (blocked): batched_chol_logpdf B={B} N={N} d={D} m={M} '
+          f'f32: launches {counts}, peak memory {peak_gib:.2f} GiB')
+    launches = {'chol_inv_block': counts['chol_inv_block']}
+    if counts['chol_inv_block'] != N // 128:   # one per diagonal block
+        raise AssertionError(f'expected {N // 128} chol_inv_block launches, '
+                             f'got {counts}')
+    if out.shape != (B, M) or not torch.isfinite(out).all():
+        raise AssertionError(f'bad output: shape {tuple(out.shape)}, finite '
+                             f'{torch.isfinite(out).all().item()}')
     ref = reference_logpdf(X, y)
     rel_ref = max_rel(out, ref)
     rel_plain = max_rel(out, pipeline(method='auto', diag='recursive')())
-    print(f'main path: max rel diff vs f64 reference {rel_ref:.3e}, vs plain '
-          f'diagonal engine {rel_plain:.3e} (limit {REL_TOL:g})')
+    print(f'main path (blocked): max rel diff vs f64 reference {rel_ref:.3e}, '
+          f'vs plain diagonal engine {rel_plain:.3e} (limit {REL_TOL:g})')
     if not (rel_ref <= REL_TOL and rel_plain <= REL_TOL):
-        raise AssertionError('main path disagrees with its references')
+        raise AssertionError('blocked route disagrees with its references')
     print(f'context: f32 torch.linalg.cholesky pipeline vs f64 reference '
           f'{max_rel(pipeline(method="xla")(), ref):.3e}')
+
+    # path 1: the fused route
+    torch.cuda.reset_peak_memory_stats()
+    fused_out, counts = drive(pipeline(method='fused'))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'main path (fused): batched_chol_logpdf method=fused: launches '
+          f'{counts}, peak memory {peak_gib:.2f} GiB')
+    launches['fused_blocked_cholesky'] = counts['fused_blocked_cholesky']
+    if counts['fused_blocked_cholesky'] != 1 or counts['chol_inv_block']:
+        raise AssertionError(f'expected one fused launch and no diagonal '
+                             f'kernel launch, got {counts}')
+    if fused_out.shape != (B, M) or not torch.isfinite(fused_out).all():
+        raise AssertionError('bad output from the fused route')
+    rel_ref = max_rel(fused_out, ref)
+    rel_blocked = max_rel(fused_out, out)
+    print(f'main path (fused): max rel diff vs f64 reference {rel_ref:.3e}, '
+          f'vs blocked route {rel_blocked:.3e} (limit {REL_TOL:g})')
+    if not (rel_ref <= REL_TOL and rel_blocked <= REL_TOL):
+        raise AssertionError('fused route disagrees with its references')
     del ref
 
+    # path 2: the tiled covariance build
+    Kc, counts = drive(lambda: rbf_covariance_pallas(X, LS, AMP, NOISE))
+    print(f'main path (covariance): rbf_covariance_pallas B={B} N={N} d={D}: '
+          f'launches {counts}')
+    launches['rbf_covariance_pallas'] = counts['rbf_covariance_pallas']
+    if counts['rbf_covariance_pallas'] != 1:
+        raise AssertionError(f'expected one rbf_covariance_pallas launch, '
+                             f'got {counts}')
+    if Kc.shape != (B, N, N) or not torch.isfinite(Kc).all():
+        raise AssertionError('bad output from rbf_covariance_pallas')
+    Xd = X.double() / LS
+    K64 = AMP * torch.exp(-0.5 * torch.cdist(Xd, Xd).square_())
+    K64.diagonal(dim1=-2, dim2=-1).add_(NOISE)
+    err64 = (Kc.double() - K64).abs().max().item()
+    del K64, Xd
+    print(f'main path (covariance): max |K - K64| {err64:.3e} (limit 1e-5)')
+    if not err64 <= 1e-5:
+        raise AssertionError('rbf_covariance_pallas disagrees with f64')
+
+    # timings
     flops = flops_chol_logpdf(B, N, D, M)
-    times = time_ms({'kernel diag (auto)': pipeline(method='auto'),
-                     'plain diag': pipeline(method='auto', diag='recursive'),
-                     'torch.linalg.cholesky (xla)': pipeline(method='xla')})
+    times = time_ms({'blocked, kernel diag (auto)': pipeline(method='auto'),
+                     'blocked, plain diag': pipeline(method='auto',
+                                                     diag='recursive'),
+                     'torch.linalg.cholesky (xla)': pipeline(method='xla'),
+                     'fused, block 256': pipeline(method='fused'),
+                     'fused, block 128': pipeline(method='fused',
+                                                  block=128)})
     for label, ms in times.items():
         print(f'timing [{card}] pipeline {label}: {ms:.3f} ms '
               f'{flops / ms / 1e6:.1f} GFLOP/s')
 
     kernels = []
+
+    def record(name, err, t, library_ms, bnd):
+        source, replaces = KERNELS[name]
+        kernels.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': launches[name],
+                        'max_abs_err': err, 'ms': t['kernel'],
+                        'plain_ms': t['plain'], 'bound_ms': bnd[0],
+                        'bound_by': bnd[1], 'library_ms': library_ms})
+
     for nb in (128, 256):
         K = spd_blocks(rng, B, nb, device)
         L, Minv = chol_inv_block(K)
         Lp, Mp = chol_inv_block_plain(K)
         err = max((L - Lp).abs().max().item(), (Minv - Mp).abs().max().item())
         t = time_ms({'kernel': lambda: chol_inv_block(K),
-                     'plain': lambda: chol_inv_block_plain(K)}, reps=10)
+                     'plain': lambda: chol_inv_block_plain(K),
+                     'library': lambda: torch.linalg.cholesky_ex(K)},
+                    reps=10)
+        bnd = bound_chol_inv(B, nb)
         print(f'timing [{card}] chol_inv_block ({B}, {nb}, {nb}): kernel '
-              f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, max abs '
-              f'diff {err:.3e}')
-        if nb == 128:      # the main path's shape
-            kernels.append({'name': 'chol_inv_block', 'route': 'cuda',
-                            'source': KERNEL_SOURCE,
-                            'replaces': KERNEL_REPLACES,
-                            'launches': launches, 'max_abs_err': err,
-                            'ms': t['kernel'], 'plain_ms': t['plain']})
+              f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+              f'torch.linalg.cholesky_ex (L only) {t["library"]:.4f} ms, '
+              f'bound {bnd[0]:.5f} ms ({bnd[1]}), max abs diff {err:.3e}')
+        if nb == 128:      # the blocked route's shape
+            record('chol_inv_block', err, t, t['library'], bnd)
+
+    K = rbf_covariance(X, LS, AMP, NOISE)       # the pipeline's K
+    L, _ = fused_blocked_cholesky(K, tril=True)
+    Lp, _ = fused_blocked_cholesky_plain(K)
+    err = (L - Lp).abs().max().item()
+    del L, Lp
+    t = time_ms({'kernel': lambda: fused_blocked_cholesky(K),
+                 'plain': lambda: fused_blocked_cholesky_plain(K),
+                 'library': lambda: torch.linalg.cholesky(K),
+                 'kernel, block 128': lambda: fused_blocked_cholesky(
+                     K, block=128)})
+    bnd = bound_fused(B, N, 256)
+    print(f'timing [{card}] fused_blocked_cholesky ({B}, {N}, {N}) block 256: '
+          f'kernel {t["kernel"]:.3f} ms (block 128: '
+          f'{t["kernel, block 128"]:.3f} ms), plain {t["plain"]:.3f} ms, '
+          f'torch.linalg.cholesky (L only) {t["library"]:.3f} ms, bound '
+          f'{bnd[0]:.3f} ms ({bnd[1]}, {flops_fused(B, N, 256) / 1e9:.1f} '
+          f'GFLOP), max abs diff {err:.3e}')
+    record('fused_blocked_cholesky', err, t, t['library'], bnd)
+    del K
+
+    err = (Kc - rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
+           ).abs().max().item()
+    del Kc
+    t = time_ms({'kernel': lambda: rbf_covariance_pallas(X, LS, AMP, NOISE),
+                 'plain': lambda: rbf_covariance_pallas_plain(X, LS, AMP,
+                                                              NOISE),
+                 'expansion': lambda: rbf_covariance(X, LS, AMP, NOISE)})
+    bnd = bound_rbf(B, N, D)
+    print(f'timing [{card}] rbf_covariance_pallas ({B}, {N}, {D}): kernel '
+          f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+          f'ops.rbf_covariance (expansion form) {t["expansion"]:.4f} ms, '
+          f'bound {bnd[0]:.4f} ms ({bnd[1]}), max abs diff {err:.3e}; no '
+          f'single PyTorch call computes it')
+    record('rbf_covariance_pallas', err, t, None, bnd)
+
+    for label, kw in (('blocked', {'method': 'auto'}),
+                      ('fused', {'method': 'fused'})):
+        profile(f'pipeline {label} [{card}]', pipeline(**kw))
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

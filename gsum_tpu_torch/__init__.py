@@ -6,8 +6,10 @@ imports ``torch`` and never ``jax``, and changes no global setting on import.
 
 Ported so far: the batched f32 pipeline ``ops.batched_chol_logpdf``
 (covariance build, blocked Cholesky, blocked solve and logdet, MVN logpdf)
-with its diagonal-block factor-and-inverse kernel written in CUDA for
-``sm_90a`` (``csrc/chol_inv_block.cu``).  ``convert.to_torch`` moves the JAX
+with its three kernels written in CUDA for ``sm_90a``: the diagonal-block
+factor and inverse (``csrc/chol_inv_block.cu``), the single-kernel blocked
+Cholesky of ``method='fused'`` (``csrc/fused_chol.cu``) and the tiled RBF
+covariance build ``ops.rbf_covariance_pallas`` (``csrc/rbf_cov.cu``).  ``convert.to_torch`` moves the JAX
 package's inputs (numpy arrays and scalars) onto a device.
 """
 from . import convert, ops

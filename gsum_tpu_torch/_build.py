@@ -1,7 +1,8 @@
 R"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ``ctypes``.
 
-Every ``*.cu`` file under ``csrc/`` is compiled for Hopper (``sm_90a``) into
-one shared library with a plain C interface.  The library's name carries a
+Every ``*.cu`` file under ``csrc/`` is compiled for Hopper (``sm_90a``), one
+``nvcc`` process per file, all started together, and the objects are linked
+into one shared library with a plain C interface.  The library's name carries a
 hash of the sources and flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is.  The build runs at first use, inside the
 package's ``build/`` directory (ignored by git).  A failed build raises with
@@ -23,8 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
 
 
 def _sources():
@@ -59,20 +61,35 @@ def build():
     if path.exists():
         return path, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: a process that builds at the same
-    # time never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *(str(p) for p in _sources() if p.suffix == '.cu')]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed with exit code %d:\n%s\n%s%s'
-                           % (proc.returncode, ' '.join(cmd), proc.stdout,
-                              proc.stderr))
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in _sources():
+            if src.suffix == '.cu':
+                cmd = [nvcc, *NVCC_FLAGS, '-c', str(src), '-o',
+                       os.path.join(work, src.stem + '.o')]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in jobs]
+        # link to a private name and rename: a process that builds at the
+        # same time never loads a half-written library
+        tmp = os.path.join(work, 'lib.so')
+        link = [nvcc, *ARCH_FLAGS, '-shared', '-o', tmp,
+                *(cmd[-1] for cmd, _, _ in logs)]
+        failed = [(cmd, out, rc) for cmd, out, rc in logs if rc]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            if proc.returncode:
+                failed = logs[-1:]
+        if failed:
+            raise RuntimeError('nvcc failed:\n' + '\n'.join(
+                'exit code %d: %s\n%s' % (rc, ' '.join(cmd), out)
+                for cmd, out, rc in failed))
+        os.replace(tmp, path)
+    return path, ''.join(out for _, out, _ in logs)
 
 
 @functools.cache

@@ -5,34 +5,16 @@
 // L (A = L L^T) and M = L^{-1}, both with explicit zeros above the diagonal.
 // nb is a multiple of 32 and at most 512; the Python wrapper checks that.
 //
-// Design.  One thread block per matrix, one loop over the columns j with two
-// barriers per column.  Both outputs come out of the same right-looking
-// elimination:
-//   - L: the pivot is d = sqrt(W[j][j]); the column below it is divided by d
-//     (and kept in a small shared array, so the update below reads it
-//     contiguously); the trailing lower triangle takes the rank-1 update
-//     W[i][k] -= L[i][j] L[k][j] for j < k <= i.
-//   - M, started as the identity: row j is divided by d, which makes it
-//     final; the rows below take M[i][c] -= L[i][j] M[j][c] for c <= j.  This
-//     is forward substitution for L M = I in outer-product order, so no
-//     thread runs a long serial dot product.
-// In the update each thread owns one column c of the active rows (column c of
-// W for c > j, of M for c <= j) and a share of the rows, so its multiplier
-// stays in a register and consecutive threads touch consecutive addresses.
-// Rows go in groups of kUnroll whose loads are issued before their stores:
-// the compiler cannot prove that the rows do not alias, and without that the
-// sweep would run one load-FMA-store latency at a time.
+// Design.  One thread block per matrix runs the column loop of
+// chol_inv_block.cuh (shared with the fused blocked Cholesky, fused_chol.cu),
+// which says how L and L^{-1} come out of one right-looking elimination.
 // When both working matrices fit in shared memory (nb <= 160 on Hopper's
 // 227 KB) they live there with a row stride of nb + 1, so the column reads of
 // the pivot step do not conflict on a bank, and are copied out at the end.
 // Larger blocks work in place in the outputs in global memory, which stay
 // L2-resident at these sizes.  Accumulation is f32 throughout; no TF32 and
-// no tensor cores.
-//
-// A non-positive pivot is not clamped and does not stop the kernel: sqrtf of a
-// negative pivot gives NaN and a zero pivot gives 0, and both propagate into
-// the factor's diagonal, where the callers' success flag
-// (all(isfinite(d) & (d > 0))) reads them.
+// no tensor cores.  A non-positive pivot puts NaN or 0 on the factor's
+// diagonal, as the .cuh says.
 //
 // What bounds it: at the pipeline's headline size (16 blocks of 128) only 16
 // thread blocks run on 132 SMs, and each walks nb columns in order, so the
@@ -47,10 +29,11 @@
 
 #include <cuda_runtime.h>
 
+#include "chol_inv_block.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kUnroll = 4;
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
@@ -73,46 +56,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  for (int j = 0; j < nb; ++j) {
-    // Every thread reads the pivot before the barrier; thread 0 stores it
-    // after the barrier, so no thread reads a half-updated diagonal.
-    const float d = sqrtf(W[j * ld + j]);
-    for (int i = j + 1 + tid; i < nb; i += blockDim.x) {
-      const float v = W[i * ld + j] / d;
-      W[i * ld + j] = v;
-      col[i] = v;
-    }
-    for (int c = tid; c <= j; c += blockDim.x) M[j * ld + c] /= d;
-    __syncthreads();
-    if (tid == 0) W[j * ld + j] = d;
-    // Thread (c, g) updates column c in rows j+1+g, j+1+g+G, ...; the L part
-    // only on and below the diagonal (c <= i).  Threads beyond G * nb idle.
-    const int G = blockDim.x / nb;
-    const int c = tid % nb;
-    const int g = tid / nb;
-    if (g < G) {
-      const bool mpart = c <= j;
-      const float mult = mpart ? M[j * ld + c] : col[c];
-      float* base = mpart ? M : W;
-      for (int i0 = j + 1 + g; i0 < nb; i0 += kUnroll * G) {
-        float ci[kUnroll], v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int i = i0 + u * G;
-          if (i < nb && (mpart || c <= i)) {
-            ci[u] = col[i];
-            v[u] = base[i * ld + c];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int i = i0 + u * G;
-          if (i < nb && (mpart || c <= i)) base[i * ld + c] = v[u] - ci[u] * mult;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  chol_inv_columns(W, ld, M, ld, col, nb);
 
   if (kStaged) {
     for (int e = tid; e < nb * nb; e += blockDim.x) {

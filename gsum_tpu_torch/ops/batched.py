@@ -20,6 +20,7 @@ import torch
 
 from .blockchol import _logdet_from_chol, blocked_chol_solve_logdet
 from .chol_inv import _cholesky_nan
+from .fusedchol import fused_chol_solve_logdet
 
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -103,14 +104,17 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
     X : (B, N, d)
     y : (B, N, m)
     length_scale, amplitude, noise : numbers or (B,) tensors
-    method : 'auto' | 'blocked' | 'xla' — factorization engine.  'blocked'
-        is the left-looking blocked factorization (``ops.blockchol``) whose
-        diagonal blocks go to the CUDA kernel for f32 input; 'xla' is
+    method : 'auto' | 'blocked' | 'fused' | 'xla' — factorization engine.
+        'blocked' is the left-looking blocked factorization
+        (``ops.blockchol``) whose diagonal blocks go to the CUDA kernel for
+        f32 input; 'fused' is the same factorization in one kernel launch
+        (``ops.fusedchol``, f32 only, N a multiple of the block); 'xla' is
         ``torch.linalg.cholesky`` (the name is the JAX package's); 'auto'
-        selects 'blocked' for N > 512.  'fused' is not ported yet.
+        selects 'blocked' for N > 512.
     diag : the blocked factorization's diagonal-block engine, 'auto' |
         'kernel' | 'recursive' (``torch.linalg``)
-    block : column-block width of 'blocked', or None for 128
+    block : column-block width, or None for the selected engine's default
+        (blocked: 128, fused: 256)
 
     Returns
     -------
@@ -121,16 +125,14 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
     if method == 'auto':
         method = 'blocked' if N > 512 else 'xla'
     if method == 'fused':
-        raise NotImplementedError(
-            "method='fused' needs the single-kernel blocked factorization "
-            "(gsum_tpu/ops/fusedchol.py), which is still to be ported: "
-            "ROADMAP.md queue B, K3")
-    if method == 'blocked':
+        w, logdet = fused_chol_solve_logdet(K, y, block=block or 256)
+    elif method == 'blocked':
         w, logdet = blocked_chol_solve_logdet(K, y, block=block or 128,
                                               diag=diag)
-        maha = torch.sum(w * w, dim=-2)
-        return -0.5 * (maha + logdet[..., None] + N * _LOG_2PI)
-    if method == 'xla':
+    elif method == 'xla':
         return _logpdf_from_chol(batched_cholesky(K), y)
-    raise ValueError(f"unknown method {method!r} (expected 'auto', "
-                     f"'blocked', 'xla' or 'fused')")
+    else:
+        raise ValueError(f"unknown method {method!r} (expected 'auto', "
+                         f"'blocked', 'xla' or 'fused')")
+    maha = torch.sum(w * w, dim=-2)
+    return -0.5 * (maha + logdet[..., None] + N * _LOG_2PI)

@@ -73,12 +73,6 @@ def test_auto_takes_blocked_route_above_512(monkeypatch):
     assert calls == []
 
 
-def test_fused_method_is_not_ported_yet():
-    X, y = to_torch(inputs(4, 1, 64, 2, 1, np.float32), 'cpu')
-    with pytest.raises(NotImplementedError, match='K3'):
-        batched.batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='fused')
-
-
 def test_to_torch_keeps_structure_and_dtypes():
     state = {'X': np.zeros((2, 3), np.float32), 'ls': 0.25,
              'orders': (np.arange(3), np.float32(2.0)), 'noise': None}

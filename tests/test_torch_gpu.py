@@ -1,5 +1,7 @@
-"""The CUDA diagonal-block kernel on the card, against its plain PyTorch
-version.  Marked ``gpu``: every test skips where there is no CUDA card.
+"""The CUDA kernels on the card, each against its plain PyTorch version: the
+diagonal-block factor and inverse, the single-kernel blocked Cholesky and
+the tiled RBF covariance build.  Marked ``gpu``: every test skips where there
+is no CUDA card.
 
 The file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q``.
@@ -9,7 +11,10 @@ import pytest
 import torch
 
 from gsum_tpu_torch.ops import (batched_chol_logpdf, chol_inv_block,
-                                chol_inv_block_plain)
+                                chol_inv_block_plain, fused_blocked_cholesky,
+                                fused_blocked_cholesky_plain,
+                                rbf_covariance_pallas,
+                                rbf_covariance_pallas_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -74,3 +79,73 @@ def test_pipeline_goes_through_the_kernel(cuda):
     plain = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, diag='recursive')
     assert torch.isfinite(out).all()
     assert ((out - plain).abs() / plain.abs()).max().item() < 1e-4
+
+
+@pytest.mark.parametrize('shape,dtype,atol', [
+    ((3, 1000, 3), torch.float32, 1e-6),     # ragged edge: 1000 % 128 != 0
+    ((2, 512, 1), torch.float64, 1e-14),
+    ((256, 2), torch.float32, 1e-6),         # one point set, no batch
+])
+def test_rbf_cov_kernel_matches_plain(cuda, shape, dtype, atol):
+    """Same direct-difference form in both: they differ by the rounding of
+    exp and of a fused multiply-add (values are at most amp + noise = 1.01)."""
+    X = torch.tensor(np.random.RandomState(0).rand(*shape), dtype=dtype,
+                     device=cuda)
+    before = rbf_covariance_pallas.launches
+    K = rbf_covariance_pallas(X, 0.25, 1.0, 1e-2)
+    torch.cuda.synchronize()
+    assert rbf_covariance_pallas.launches == before + 1
+    assert K.shape == shape[:-1] + (shape[-2],) and K.dtype == dtype
+    plain = rbf_covariance_pallas_plain(X, 0.25, 1.0, 1e-2)
+    assert (K - plain).abs().max().item() < atol
+
+
+@pytest.mark.parametrize('B,N,block', [(2, 1024, 256), (3, 512, 128),
+                                       (2, 512, 64)])
+def test_fused_kernel_matches_plain(cuda, B, N, block):
+    """One launch; tril(L) within 1e-5·max|L| of the f64 factor and
+    2e-5·max|L| of the plain version; each diagonal block times its inverse
+    is I to 1e-4."""
+    K = _blocks(B, N, cuda)
+    before = fused_blocked_cholesky.launches
+    L, minvs = fused_blocked_cholesky(K, block=block)
+    torch.cuda.synchronize()
+    assert fused_blocked_cholesky.launches == before + 1
+    L = torch.tril(L)
+    Lp, _ = fused_blocked_cholesky_plain(K, block)
+    Lref = torch.linalg.cholesky(K.double())
+    scale = Lref.abs().max().item()
+    assert (L.double() - Lref).abs().max().item() < 1e-5 * scale
+    assert (L - Lp).abs().max().item() < 2e-5 * scale
+    eye = torch.eye(block, dtype=torch.float64, device=cuda)
+    for k in range(N // block):
+        s = slice(k * block, (k + 1) * block)
+        resid = L[:, s, s].double() @ minvs[:, k].double() - eye
+        assert resid.abs().max().item() < 1e-4
+
+
+def test_fused_kernel_flags_non_spd_matrix(cuda):
+    K = _blocks(3, 512, cuda)
+    K[1, 7, 7] = -1.0
+    L, _ = fused_blocked_cholesky(K, block=128, tril=True)
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    ok = (torch.isfinite(d) & (d > 0)).all(-1)
+    assert ok.tolist() == [True, False, True]
+    assert torch.isfinite(L[[0, 2]]).all()
+
+
+def test_fused_pipeline_goes_through_one_launch(cuda):
+    """At N=1024 the fused route launches the fused kernel once and the
+    diagonal kernel never, and agrees with the blocked route to 1e-4."""
+    rng = np.random.RandomState(0)
+    X = torch.tensor(rng.rand(2, 1024, 2), dtype=torch.float32, device=cuda)
+    y = torch.tensor(rng.randn(2, 1024, 3), dtype=torch.float32, device=cuda)
+    fused_before = fused_blocked_cholesky.launches
+    diag_before = chol_inv_block.launches
+    out = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='fused')
+    torch.cuda.synchronize()
+    assert fused_blocked_cholesky.launches == fused_before + 1
+    assert chol_inv_block.launches == diag_before
+    blocked = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='blocked')
+    assert torch.isfinite(out).all()
+    assert ((out - blocked).abs() / blocked.abs()).max().item() < 1e-4
