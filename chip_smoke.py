@@ -25,7 +25,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      version and an f64 build;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
-   of 6 samples taken in alternating order);
+   of 6 samples taken in alternating order); beside ``chol_inv_block`` also
+   the two-call pair ``cholesky_ex`` + ``solve_triangular(L, I)``, which
+   computes both of its outputs (context, not its ``library_ms``);
 6. profiles each headline pipeline once with ``torch.profiler``: device
    time by kernel and the device's idle share.
 
@@ -453,15 +455,20 @@ def main():
         L, Minv = chol_inv_block(K)
         Lp, Mp = chol_inv_block_plain(K)
         err = max((L - Lp).abs().max().item(), (Minv - Mp).abs().max().item())
+        eye = torch.eye(nb, device=device).expand_as(K)
         t = time_ms({'kernel': lambda: chol_inv_block(K),
                      'plain': lambda: chol_inv_block_plain(K),
-                     'library': lambda: torch.linalg.cholesky_ex(K)},
+                     'library': lambda: torch.linalg.cholesky_ex(K),
+                     'pair': lambda: torch.linalg.solve_triangular(
+                         torch.linalg.cholesky_ex(K).L, eye, upper=False)},
                     reps=10)
         bnd = bound_chol_inv(B, nb)
         print(f'timing [{card}] chol_inv_block ({B}, {nb}, {nb}): kernel '
               f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
               f'torch.linalg.cholesky_ex (L only) {t["library"]:.4f} ms, '
-              f'bound {bnd[0]:.5f} ms ({bnd[1]}), max abs diff {err:.3e}')
+              f'bound {bnd[0]:.5f} ms ({bnd[1]}), max abs diff {err:.3e}; '
+              f'context: cholesky_ex + solve_triangular(L, I), the pair '
+              f'that computes what the kernel does, {t["pair"]:.4f} ms')
         if nb == 128:      # the blocked route's shape
             record('chol_inv_block', err, t, t['library'], bnd)
 

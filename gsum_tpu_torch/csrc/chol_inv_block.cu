@@ -5,24 +5,26 @@
 // L (A = L L^T) and M = L^{-1}, both with explicit zeros above the diagonal.
 // nb is a multiple of 32 and at most 512; the Python wrapper checks that.
 //
-// Design.  One thread block per matrix runs the column loop of
-// chol_inv_block.cuh (shared with the fused blocked Cholesky, fused_chol.cu),
-// which says how L and L^{-1} come out of one right-looking elimination.
-// When both working matrices fit in shared memory (nb <= 160 on Hopper's
-// 227 KB) they live there with a row stride of nb + 1, so the column reads of
-// the pivot step do not conflict on a bank, and are copied out at the end.
-// Larger blocks work in place in the outputs in global memory, which stay
-// L2-resident at these sizes.  Accumulation is f32 throughout; no TF32 and
-// no tensor cores.  A non-positive pivot puts NaN or 0 on the factor's
-// diagonal, as the .cuh says.
+// What bounds it: at the pipeline's shape, (16, 128, 128), the work is
+// 2 nb^3 / 3 flops and 2.5 MiB per launch, under a microsecond of the card's
+// rates, so neither bytes nor FFMAs bound it: the chain of dependent steps
+// of one factorization does, on 16 of the 132 SMs.  A loop over columns pays
+// two block barriers and a shared-memory round trip for each of them.
 //
-// What bounds it: at the pipeline's headline size (16 blocks of 128) only 16
-// thread blocks run on 132 SMs, and each walks nb columns in order, so the
-// kernel is bound by the latency of that per-column chain (two barriers and a
-// short parallel update per column), not by bytes or FLOPs.  Blocks from
-// global memory (nb >= 192) are bound by L2 traffic instead.  Making it fast -
-// several thread blocks per matrix, wgmma panels, or the fused whole-
-// factorization kernel of gsum_tpu/ops/fusedchol.py - is later work.
+// Design.  One thread block of 256 threads per matrix runs the panel-blocked
+// routine of chol_inv_block.cuh (shared with the fused blocked Cholesky,
+// fused_chol.cu): the serial column steps run inside 32-wide panels in one
+// warp's registers, with shuffles and no block barrier, and the work across
+// panels is 32 x 32 warp-tile products, two block barriers per panel.  When
+// both working matrices fit in shared memory (nb <= 160 on Hopper's 227 KB)
+// they live there with a row stride of nb + 1, so the products' loads do not
+// conflict on a bank, and are copied out at the end.  Larger blocks work in
+// place in the outputs in global memory (L2-resident at these sizes), and
+// each panel of L and of the inverse rows is also staged in shared memory,
+// from where the rank-32 updates read their operands.  Accumulation is f32
+// FFMA throughout; no TF32 and no tensor cores, because the JAX kernel runs
+// at Precision.HIGHEST.  A non-positive pivot puts NaN on the factor's
+// diagonal, as the .cuh says.
 //
 // The host entry launches on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -33,7 +35,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
@@ -43,12 +45,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const size_t off = static_cast<size_t>(blockIdx.x) * nb * nb;
   const int ld = kStaged ? nb + 1 : nb;
-  float* col = smem;
-  float* W = kStaged ? smem + nb : L + off;
-  float* M = kStaged ? smem + nb + nb * ld : Minv + off;
+  float* W = kStaged ? smem : L + off;
+  float* M = kStaged ? smem + nb * ld : Minv + off;
 
   // W = lower triangle of A, M = I; the strict upper triangles stay zero.
-  for (int e = tid; e < nb * nb; e += blockDim.x) {
+  for (int e = tid; e < nb * nb; e += kThreads) {
     const int i = e / nb;
     const int k = e - i * nb;
     W[i * ld + k] = k <= i ? A[off + e] : 0.f;
@@ -56,15 +57,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  chol_inv_columns(W, ld, M, ld, col, nb);
-
   if (kStaged) {
-    for (int e = tid; e < nb * nb; e += blockDim.x) {
+    chol_inv_panels(W, ld, M, ld, nb, nullptr, nullptr);
+    for (int e = tid; e < nb * nb; e += kThreads) {
       const int i = e / nb;
       const int k = e - i * nb;
       L[off + e] = W[i * ld + k];
       Minv[off + e] = M[i * ld + k];
     }
+  } else {
+    chol_inv_panels(W, ld, M, ld, nb, smem, smem + nb * kPanelLd);
   }
 }
 
@@ -80,8 +82,9 @@ extern "C" int gsum_chol_inv_block_f32(const float* A, float* L, float* Minv,
                                dev);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t staged_bytes =
-      (static_cast<size_t>(nb) + 2u * nb * (nb + 1u)) * sizeof(float);
+  const size_t staged_bytes = 2u * nb * (nb + 1u) * sizeof(float);
+  const size_t panel_bytes =
+      static_cast<size_t>(nb) * (kPanelLd + kPanel) * sizeof(float);
   if (staged_bytes <= static_cast<size_t>(optin)) {
     err = cudaFuncSetAttribute(chol_inv_block_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -90,7 +93,11 @@ extern "C" int gsum_chol_inv_block_f32(const float* A, float* L, float* Minv,
     chol_inv_block_kernel<true><<<batch, kThreads, staged_bytes, s>>>(
         A, L, Minv, nb);
   } else {
-    chol_inv_block_kernel<false><<<batch, kThreads, nb * sizeof(float), s>>>(
+    err = cudaFuncSetAttribute(chol_inv_block_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(panel_bytes));
+    if (err != cudaSuccess) return err;
+    chol_inv_block_kernel<false><<<batch, kThreads, panel_bytes, s>>>(
         A, L, Minv, nb);
   }
   return cudaGetLastError();

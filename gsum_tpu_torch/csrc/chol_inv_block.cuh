@@ -1,80 +1,233 @@
-// The column loop shared by the diagonal-block kernel (chol_inv_block.cu)
-// and the fused blocked Cholesky (fused_chol.cu): one thread block turns an
-// SPD block into its lower Cholesky factor L and M = L^{-1}.
+// The panel-blocked factor + inverse shared by the diagonal-block kernel
+// (chol_inv_block.cu) and the fused blocked Cholesky (fused_chol.cu): one
+// thread block turns an SPD block into its lower Cholesky factor L and
+// M = L^{-1}.
 //
-// On entry W holds the block's lower triangle (the strict upper triangle is
-// neither read nor written) and M the identity; on exit W holds L and M holds
-// L^{-1}.  `col` is scratch for nb floats in shared memory.  W and M may live
-// in shared or global memory, with row strides ldw and ldm.  Every thread of
-// the block calls the routine; it needs blockDim.x >= nb.
+// It computes what gsum_tpu/ops/pallas_chol.py::_make_kernel computes, with
+// that kernel's two levels (pallas_chol.py:11-18): the serial work stays
+// inside 32-wide panels, and everything across panels is a product.  For
+// each panel p (columns j0 .. e = j0 + 32):
+//   (A) one warp factors the panel's 32 x 32 diagonal tile and forms its
+//       leaf inverse Md in registers; pivots and columns move by
+//       __shfl_sync, so the 32 serial column steps have no block barrier and
+//       no shared-memory round trip (panel_diagonal says how);
+//   (B) the block forms, as 32 x 32 warp tiles, the panel below the tile,
+//       L[e:, j0:e] = W[e:, j0:e] Md^T, and the panel's rows of the
+//       inverse, M[j0:e, :j0] = Md B_p (B_p held in those rows of M);
+//   (C) the block applies the rank-32 updates: the trailing lower triangle
+//       W[e:, e:] -= L[e:, j0:e] L[e:, j0:e]^T, and the inverse rows below,
+//       M[e:, :e] -= L[e:, j0:e] M[j0:e, :e].  (B) and (C) together are
+//       blocked forward substitution for L M = I in outer-product order,
+//       the glued rows M[q,:] = Mqq (I[q,:] - L[q,:j0] M[:j0,:]) of
+//       pallas_chol.py:17-18.
+// Look-ahead: in (C) warp 0 first updates the next panel's diagonal tile and
+// then runs (A) on it while the other warps finish (C).  A panel costs two
+// block barriers (after B and after C): 8 in all at nb = 128, against 256
+// for a loop with a barrier pair per column.
 //
-// One loop over the columns j with two barriers per column.  Both outputs
-// come out of the same right-looking elimination:
-//   - L: the pivot is d = sqrt(W[j][j]); the column below it is divided by d
-//     (and kept in `col`, so the update below reads it contiguously); the
-//     trailing lower triangle takes the rank-1 update
-//     W[i][k] -= L[i][j] L[k][j] for j < k <= i.
-//   - M: row j is divided by d, which makes it final; the rows below take
-//     M[i][c] -= L[i][j] M[j][c] for c <= j.  This is forward substitution
-//     for L M = I in outer-product order, so no thread runs a long serial
-//     dot product.
-// In the update each thread owns one column c of the active rows (column c of
-// W for c > j, of M for c <= j) and a share of the rows, so its multiplier
-// stays in a register and consecutive threads touch consecutive addresses.
-// Rows go in groups of kCholUnroll whose loads are issued before their
-// stores: the compiler cannot prove that the rows do not alias, and without
-// that the sweep would run one load-FMA-store latency at a time.
+// What bounds it: at nb = 128 the work is 2 nb^3 / 3 flops, a few
+// microseconds of one SM's FFMA rate, so neither bytes nor flops do: the
+// chain of dependent steps does.  On the H100 (time_phases.py) each (A) takes
+// about 5.6 us, 32 steps of one warp whose shuffles and FFMAs issue in
+// order; (B) takes about 1.6 us and (C), which holds the next (A), 7-8 us.
 //
-// A non-positive pivot is not clamped and does not stop the loop: sqrtf of a
-// negative pivot gives NaN and a zero pivot gives 0, and both propagate into
-// the factor's diagonal, where the callers' success flag
-// (all(isfinite(d) & (d > 0))) reads them.
+// A warp tile is 32 x 32 outputs over a depth of 32: lane (ly, lx) =
+// (lane / 8, lane % 8) owns rows ly + 4a (a < 8) and columns lx + 8b
+// (b < 4), so each depth step is 12 loads for 32 FFMAs.  With row strides
+// congruent to 1 mod 32 (nb + 1, as the callers stage them) the loads of a
+// step fall on distinct banks or are broadcasts.
+//
+// On entry W holds the block's lower triangle (its strict upper triangle is
+// neither read nor written) and M the identity; on exit W holds L and M
+// holds L^{-1}.  W and M may lie in shared or global memory, with row
+// strides ldw and ldm.  When they lie in global memory the caller passes Ps
+// (nb x kPanelLd floats) and Xs (32 x nb floats) in shared memory: each
+// panel of L and each X_p = M[j0:e, :e] is written there too, and (C) reads
+// its operands from them.  With Ps == nullptr, (C) reads W and M directly.
+// Every thread of the block calls the routine; blockDim.x is a multiple of
+// 32, at least 64, and the routine ends with a block barrier.
+//
+// A non-positive pivot is not clamped and does not stop the loop: it gives
+// NaN (pivot * rsqrtf(pivot)), which propagates into the factor's diagonal,
+// where the callers' success flag (all(isfinite(d) & (d > 0))) reads it.
 
 #pragma once
 
-constexpr int kCholUnroll = 4;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kPanel = 32;
+constexpr int kPanelLd = kPanel + 1;  // row stride of the staged panel Ps
 
-__device__ __forceinline__ void chol_inv_columns(float* W, int ldw, float* M,
-                                                 int ldm, float* col, int nb) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < nb; ++j) {
-    // Every thread reads the pivot before the barrier; thread 0 stores it
-    // after the barrier, so no thread reads a half-updated diagonal.
-    const float d = sqrtf(W[j * ldw + j]);
-    for (int i = j + 1 + tid; i < nb; i += blockDim.x) {
-      const float v = W[i * ldw + j] / d;
-      W[i * ldw + j] = v;
-      col[i] = v;
+// acc = sum_{u < 32} A(i, u) B(u, c) over one warp's 32 x 32 tile: A is
+// row-major (A[i * lda + u]); B(u, c) is B[c * ldb + u] when kTransB, else
+// B[u * ldb + c].
+template <bool kTransB>
+__device__ __forceinline__ void warp_tile_product(const float* A, int lda,
+                                                  const float* B, int ldb,
+                                                  float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int ly = lane >> 3;
+  const int lx = lane & 7;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll 4
+  for (int u = 0; u < kPanel; ++u) {
+    float av[8], bv[4];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) av[a] = A[(ly + 4 * a) * lda + u];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      bv[b] = kTransB ? B[(lx + 8 * b) * ldb + u] : B[u * ldb + lx + 8 * b];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+  }
+}
+
+// (A) for the panel at column j0, by the calling warp: the 32 x 32 tile of
+// W becomes L's, and its leaf inverse Md goes into M's tile (and into Xs,
+// row stride ldx).  Lane i holds row i of the tile in a[] and column i of
+// the substitution's right-hand side in m[], both rotated: at step j,
+// a[k] = W(i, j + k) and m[k] = rhs(j + k, i).  So every step runs the same
+// code on fixed registers, and the loop over steps stays a loop: unrolled,
+// the 32 steps would be several thousand instructions, more than the
+// instruction cache holds.  Step j broadcasts L's column j once
+// (__shfl_sync); the rank-1 update of the rows below and the forward
+// substitution for L Md = I (in outer-product order) both use it.  Lanes
+// that a step leaves alone get a multiplier of 0, not a branch; the
+// entries of a[] above the diagonal take garbage and are never read.
+__device__ __forceinline__ void panel_diagonal(float* W, int ldw, float* M,
+                                               int ldm, int j0, float* Xs,
+                                               int ldx) {
+  const int lane = threadIdx.x & 31;
+  float a[kPanel], m[kPanel];
+  float* Wrow = W + (j0 + lane) * ldw + j0;
+  float* Mcol = M + j0 * ldm + j0 + lane;
+#pragma unroll
+  for (int k = 0; k < kPanel; ++k) {
+    a[k] = k <= lane ? Wrow[k] : 0.f;
+    m[k] = k == lane ? 1.f : 0.f;
+  }
+#pragma unroll 1
+  for (int j = 0; j < kPanel; ++j) {
+    const float pivot = __shfl_sync(kFullMask, a[0], j);
+    const float rd = rsqrtf(pivot);
+    const float l = lane == j ? pivot * rd : a[0] * rd;  // L(i, j), i >= j
+    const float lm = lane > j ? l : 0.f;
+    const float mt = m[0] * rd;                          // Md(j, i)
+    if (lane >= j) Wrow[j] = l;
+    Mcol[j * ldm] = mt;
+    if (Xs) Xs[j * ldx + j0 + lane] = mt;
+#pragma unroll
+    for (int k = 1; k < kPanel; ++k) {
+      const float lk = __shfl_sync(kFullMask, lm, (j + k) & 31);  // L(j+k, j)
+      a[k - 1] = fmaf(-lm, lk, a[k]);
+      m[k - 1] = fmaf(-lk, mt, m[k]);
     }
-    for (int c = tid; c <= j; c += blockDim.x) M[j * ldm + c] /= d;
-    __syncthreads();
-    if (tid == 0) W[j * ldw + j] = d;
-    // Thread (c, g) updates column c in rows j+1+g, j+1+g+G, ...; the L part
-    // only on and below the diagonal (c <= i).  Threads beyond G * nb idle.
-    const int G = blockDim.x / nb;
-    const int c = tid % nb;
-    const int g = tid / nb;
-    if (g < G) {
-      const bool mpart = c <= j;
-      const float mult = mpart ? M[j * ldm + c] : col[c];
-      float* base = mpart ? M : W;
-      const int ld = mpart ? ldm : ldw;
-      for (int i0 = j + 1 + g; i0 < nb; i0 += kCholUnroll * G) {
-        float ci[kCholUnroll], v[kCholUnroll];
+  }
+}
+
+__device__ __forceinline__ void chol_inv_panels(float* W, int ldw, float* M,
+                                                int ldm, int nb, float* Ps,
+                                                float* Xs) {
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ly = lane >> 3;
+  const int lx = lane & 7;
+  // (C) reads the panel as P(r, t) = P[r * ldp + t] and X_p as
+  // X(t, c) = X[t * ldx + c]
+  const int ldp = Ps ? kPanelLd : ldw;
+  const int ldx = Xs ? nb : ldm;
+  float acc[8][4];
+
+  if (warp == 0) panel_diagonal(W, ldw, M, ldm, 0, Xs, nb);
+  __syncthreads();
+  for (int j0 = 0;; j0 += kPanel) {
+    const int e = j0 + kPanel;
+    const int p = j0 / kPanel;
+    const int nq = (nb - e) / kPanel;  // 32-row tiles below the panel
+    const float* Md = M + j0 * ldm + j0;
+
+    // (B): nq tiles of the panel below, then p tiles of X_p.  Each task
+    // reads only the tile it overwrites (and Md), so a warp barrier
+    // between its reads and its writes suffices.
+    for (int t = warp; t < nq + p; t += nwarps) {
+      if (t < nq) {
+        const int r0 = e + kPanel * t;
+        float* A = W + r0 * ldw + j0;
+        warp_tile_product<true>(A, ldw, Md, ldm, acc);
+        __syncwarp();
 #pragma unroll
-        for (int u = 0; u < kCholUnroll; ++u) {
-          const int i = i0 + u * G;
-          if (i < nb && (mpart || c <= i)) {
-            ci[u] = col[i];
-            v[u] = base[i * ld + c];
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = ly + 4 * a;
+            const int c = lx + 8 * b;
+            A[i * ldw + c] = acc[a][b];
+            if (Ps) Ps[(r0 + i) * kPanelLd + c] = acc[a][b];
           }
-        }
+      } else {
+        const int c0 = kPanel * (t - nq);
+        float* Bp = M + j0 * ldm + c0;
+        warp_tile_product<false>(Md, ldm, Bp, ldm, acc);
+        __syncwarp();
 #pragma unroll
-        for (int u = 0; u < kCholUnroll; ++u) {
-          const int i = i0 + u * G;
-          if (i < nb && (mpart || c <= i)) base[i * ld + c] = v[u] - ci[u] * mult;
-        }
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = ly + 4 * a;
+            const int c = lx + 8 * b;
+            Bp[i * ldm + c] = acc[a][b];
+            if (Xs) Xs[i * nb + c0 + c] = acc[a][b];
+          }
       }
+    }
+    __syncthreads();
+    if (nq == 0) break;
+
+    // (C): nq (nq + 1) / 2 lower tiles of the trailing triangle, then
+    // nq (p + 1) tiles of the inverse rows below.  Task 0, the next panel's
+    // diagonal tile, is warp 0's, which then runs (A) on it; the other
+    // warps share the rest.
+    const float* P = Ps ? Ps : W + j0;
+    const float* X = Xs ? Xs : M + j0 * ldm;
+    const int ntri = nq * (nq + 1) / 2;
+    const int ntasks = ntri + nq * (p + 1);
+    const int step = warp == 0 ? ntasks : nwarps - 1;
+    for (int t = warp; t < ntasks; t += step) {
+      if (t < ntri) {
+        int I = 0;
+        while ((I + 1) * (I + 2) / 2 <= t) ++I;
+        const int K = t - I * (I + 1) / 2;
+        const int r0 = e + kPanel * I;
+        const int c0 = e + kPanel * K;
+        warp_tile_product<true>(P + r0 * ldp, ldp, P + c0 * ldp, ldp, acc);
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = ly + 4 * a;
+            const int c = lx + 8 * b;
+            if (I > K || c <= i) W[(r0 + i) * ldw + c0 + c] -= acc[a][b];
+          }
+      } else {
+        const int I = (t - ntri) / (p + 1);
+        const int c0 = kPanel * ((t - ntri) % (p + 1));
+        const int r0 = e + kPanel * I;
+        warp_tile_product<false>(P + r0 * ldp, ldp, X + c0, ldx, acc);
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            M[(r0 + ly + 4 * a) * ldm + c0 + lx + 8 * b] -= acc[a][b];
+      }
+    }
+    if (warp == 0) {
+      __syncwarp();
+      panel_diagonal(W, ldw, M, ldm, e, Xs, nb);
     }
     __syncthreads();
   }

@@ -57,6 +57,20 @@ def test_kernel_matches_plain(cuda, B, nb):
     assert torch.equal(torch.triu(M, 1), torch.zeros_like(M))
 
 
+def test_kernel_more_matrices_than_sms(cuda):
+    """B=200 blocks of 128: more thread blocks than the card has SMs, each
+    matrix still its own block's; L within 1e-5·max|L| of the f64 factor
+    and L·M = I to 1e-4."""
+    K = _blocks(200, 128, cuda, seed=3)
+    L, M = chol_inv_block(K)
+    torch.cuda.synchronize()
+    Lref = torch.linalg.cholesky(K.double())
+    scale = Lref.abs().max().item()
+    assert (L.double() - Lref).abs().max().item() < 1e-5 * scale
+    eye = torch.eye(128, dtype=torch.float64, device=cuda)
+    assert (L.double() @ M.double() - eye).abs().max().item() < 1e-4
+
+
 def test_kernel_flags_non_spd_block(cuda):
     K = _blocks(4, 128, cuda)
     K[2, 7, 7] = -1.0
@@ -117,6 +131,41 @@ def test_fused_kernel_matches_plain(cuda, B, N, block):
     scale = Lref.abs().max().item()
     assert (L.double() - Lref).abs().max().item() < 1e-5 * scale
     assert (L - Lp).abs().max().item() < 2e-5 * scale
+    eye = torch.eye(block, dtype=torch.float64, device=cuda)
+    for k in range(N // block):
+        s = slice(k * block, (k + 1) * block)
+        resid = L[:, s, s].double() @ minvs[:, k].double() - eye
+        assert resid.abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize('block', [32, 64, 128, 256])
+def test_fused_kernel_zero_upper_in_diagonal_blocks(cuda, block):
+    """Without tril, the strict upper triangle inside each diagonal block is
+    exactly 0: the history that skips the warp tiles above the diagonal
+    must leave no residue there."""
+    N = 2 * max(block, 256)
+    K = _blocks(2, N, cuda, seed=5)
+    L, _ = fused_blocked_cholesky(K, block=block)
+    torch.cuda.synchronize()
+    for k in range(N // block):
+        s = slice(k * block, (k + 1) * block)
+        assert torch.equal(torch.triu(L[:, s, s], 1),
+                           torch.zeros_like(L[:, s, s]))
+
+
+@pytest.mark.parametrize('B,N,block', [(300, 64, 32), (1, 2048, 256)])
+def test_fused_kernel_wrapped_and_underfilled(cuda, B, N, block):
+    """B=300 matrices of 64 at block 32: more matrices than the cooperative
+    grid has blocks, so the diagonal step's loop over matrices wraps.  B=1,
+    N=2048 at block 256: every step has fewer strips than blocks.  tril(L)
+    within 1e-5·max|L| of the f64 factor, each diagonal block times its
+    inverse is I to 1e-4."""
+    K = _blocks(B, N, cuda, seed=7)
+    L, minvs = fused_blocked_cholesky(K, block=block, tril=True)
+    torch.cuda.synchronize()
+    Lref = torch.linalg.cholesky(K.double())
+    scale = Lref.abs().max().item()
+    assert (L.double() - Lref).abs().max().item() < 1e-5 * scale
     eye = torch.eye(block, dtype=torch.float64, device=cuda)
     for k in range(N // block):
         s = slice(k * block, (k + 1) * block)
