@@ -9,8 +9,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
 3. holds each kernel against its plain PyTorch version:
    - ``chol_inv_block`` (K1) and an f64 factor at nb in {32, 128, 256, 512},
      B in {1, 16}, and checks that a non-SPD block is flagged;
-   - ``rbf_covariance_pallas`` (K2) at (16, 4096, 2) and (3, 1000, 3) f32
-     and (2, 512, 1) f64;
+   - ``rbf_covariance_pallas`` (K2) at (16, 4096, 2) and (3, 1000, 3)
+     (unaligned N) f32 and (2, 512, 1) and (2, 4097, 2) f64, one launch a
+     call, K exactly symmetric;
    - ``fused_blocked_cholesky`` (K3) and an f64 factor at (2, 1024) and
      (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
 4. drives the three paths once each, with every kernel's launch count set
@@ -22,12 +23,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    - the same pipeline with ``method='fused'``, against the f64 reference
      and the blocked route;
    - ``ops.rbf_covariance_pallas`` at B=16, N=4096, d=2, against its plain
-     version and an f64 build;
+     version and an f64 build, and exactly symmetric;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
-   of 6 samples taken in alternating order); beside ``chol_inv_block`` also
+   of 6 samples taken in alternating order, each sample one call, or ten
+   back to back for K1 and K2, whose calls are short); beside
+   ``chol_inv_block`` also
    the two-call pair ``cholesky_ex`` + ``solve_triangular(L, I)``, which
-   computes both of its outputs (context, not its ``library_ms``);
+   computes both of its outputs (context, not its ``library_ms``); beside
+   K2 also ``fill_`` of the same memory, the practical rate of writing it,
+   and K2 in f64 (context too);
 6. profiles each headline pipeline once with ``torch.profiler``: device
    time by kernel and the device's idle share.
 
@@ -86,10 +91,11 @@ def bound_chol_inv(b, nb):
                  b * 2.0 * nb ** 3 / 3)
 
 
-def bound_rbf(b, n, d):
+def bound_rbf(b, n, d, itemsize=4):
     """K2: reads X, writes K; 3d flops of differences and squares and 3 for
-    the scale, exp and amplitude per element."""
-    return bound(4 * (b * n * d + b * n * n), b * n * n * (3.0 * d + 3))
+    the scale, exp and amplitude per element (counted at the f32 rate)."""
+    return bound(itemsize * (b * n * d + b * n * n),
+                 b * n * n * (3.0 * d + 3))
 
 
 def flops_fused(b, n, blk):
@@ -203,7 +209,8 @@ def check_rbf(device):
     rng = np.random.RandomState(1)
     for shape, dtype, atol in (((B, N, D), torch.float32, 1e-6),
                                ((3, 1000, 3), torch.float32, 1e-6),
-                               ((2, 512, 1), torch.float64, 1e-14)):
+                               ((2, 512, 1), torch.float64, 1e-14),
+                               ((2, 4097, 2), torch.float64, 1e-14)):
         X = torch.tensor(rng.rand(*shape), dtype=dtype, device=device)
         before = rbf_covariance_pallas.launches
         K = rbf_covariance_pallas(X, LS, AMP, NOISE)
@@ -211,9 +218,11 @@ def check_rbf(device):
         launched = rbf_covariance_pallas.launches - before
         err = (K - rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
                ).abs().max().item()
+        symmetric = torch.equal(K, K.mT)
         print(f'rbf_covariance_pallas {shape} {dtype}: max |K-Kplain| '
-              f'{err:.3e} (limit {atol:g}), launches {launched}')
-        if launched != 1 or not err <= atol:
+              f'{err:.3e} (limit {atol:g}), K == K.mT {symmetric}, '
+              f'launches {launched}')
+        if launched != 1 or not err <= atol or not symmetric:
             raise AssertionError(f'rbf_covariance_pallas disagrees at {shape}')
         del K
 
@@ -423,8 +432,10 @@ def main():
     K64.diagonal(dim1=-2, dim2=-1).add_(NOISE)
     err64 = (Kc.double() - K64).abs().max().item()
     del K64, Xd
-    print(f'main path (covariance): max |K - K64| {err64:.3e} (limit 1e-5)')
-    if not err64 <= 1e-5:
+    symmetric = torch.equal(Kc, Kc.mT)
+    print(f'main path (covariance): max |K - K64| {err64:.3e} (limit 1e-5), '
+          f'K == K.mT {symmetric}')
+    if not (err64 <= 1e-5 and symmetric):
         raise AssertionError('rbf_covariance_pallas disagrees with f64')
 
     # timings
@@ -495,16 +506,28 @@ def main():
     err = (Kc - rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
            ).abs().max().item()
     del Kc
+    out = torch.empty(B, N, N, device=device)
+    X64 = X.double()
+    out64 = torch.empty(B, N, N, dtype=torch.float64, device=device)
     t = time_ms({'kernel': lambda: rbf_covariance_pallas(X, LS, AMP, NOISE),
                  'plain': lambda: rbf_covariance_pallas_plain(X, LS, AMP,
                                                               NOISE),
-                 'expansion': lambda: rbf_covariance(X, LS, AMP, NOISE)})
+                 'expansion': lambda: rbf_covariance(X, LS, AMP, NOISE),
+                 'fill': lambda: out.fill_(1.0),
+                 'kernel f64': lambda: rbf_covariance_pallas(X64, LS, AMP,
+                                                             NOISE),
+                 'fill f64': lambda: out64.fill_(1.0)}, reps=10)
+    del out, out64
     bnd = bound_rbf(B, N, D)
-    print(f'timing [{card}] rbf_covariance_pallas ({B}, {N}, {D}): kernel '
-          f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+    bnd64 = bound_rbf(B, N, D, itemsize=8)
+    print(f'timing [{card}] rbf_covariance_pallas ({B}, {N}, {D}) f32: '
+          f'kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
           f'ops.rbf_covariance (expansion form) {t["expansion"]:.4f} ms, '
           f'bound {bnd[0]:.4f} ms ({bnd[1]}), max abs diff {err:.3e}; no '
-          f'single PyTorch call computes it')
+          f'single PyTorch call computes it; context: fill_(1.0) of the '
+          f'same 1 GiB {t["fill"]:.4f} ms; f64: kernel '
+          f'{t["kernel f64"]:.4f} ms, fill_ of its 2 GiB '
+          f'{t["fill f64"]:.4f} ms, bound {bnd64[0]:.4f} ms ({bnd64[1]})')
     record('rbf_covariance_pallas', err, t, None, bnd)
 
     for label, kw in (('blocked', {'method': 'auto'}),

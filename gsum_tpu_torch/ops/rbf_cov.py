@@ -4,9 +4,10 @@ R"""Tiled RBF covariance build (counterpart of ``gsum_tpu/ops/pallas_cov.py``).
 writes ``K = amplitude · exp(−½‖xᵢ − xⱼ‖²/ls²) + noise·I`` from direct
 differences of the scaled points, in one launch of a CUDA kernel written for
 Hopper (``gsum_tpu_torch/csrc/rbf_cov.cu``, which says how it is built and
-what bounds it) that takes the batch directly and masks the ragged edge, so
-any N runs in the kernel: the TPU kernel's tile condition and its fallback
-have no counterpart, and ``tile`` is accepted and has no effect.
+what bounds it).  Its persistent blocks walk the tiles of every matrix, so
+any batch size runs, and it masks the ragged edge, so any N runs: the TPU
+kernel's tile condition and its fallback have no counterpart, and ``tile``
+is accepted and has no effect.
 
 On a CPU tensor the wrapper computes the same function with
 :func:`rbf_covariance_pallas_plain`; on a CUDA tensor it launches the kernel
@@ -106,9 +107,6 @@ def rbf_covariance_pallas(X, length_scale, amplitude=1.0, noise=0.0, tile=256):
     Xb = X.reshape(-1, N, d)
     K = X.new_empty(Xb.shape[:1] + (N, N))
     if K.numel():
-        if Xb.shape[0] > 65535:
-            raise ValueError(f'batch of {Xb.shape[0]} exceeds the kernel '
-                             f'grid limit of 65535')
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream(X.device).cuda_stream
             err = _entry(X.dtype)(Xb.data_ptr(), K.data_ptr(), Xb.shape[0], N,

@@ -96,13 +96,23 @@ def test_pipeline_goes_through_the_kernel(cuda):
 
 
 @pytest.mark.parametrize('shape,dtype,atol', [
-    ((3, 1000, 3), torch.float32, 1e-6),     # ragged edge: 1000 % 128 != 0
+    ((3, 1000, 3), torch.float32, 1e-6),     # ragged edge: 1000 % 64 != 0
     ((2, 512, 1), torch.float64, 1e-14),
     ((256, 2), torch.float32, 1e-6),         # one point set, no batch
+    ((3, 1, 2), torch.float32, 1e-6),        # smaller than a tile
+    ((3, 5, 2), torch.float32, 1e-6),
+    ((2, 1001, 2), torch.float32, 1e-6),     # rows not 16-byte aligned
+    ((2, 4097, 2), torch.float32, 1e-6),
+    ((2, 300, 9), torch.float32, 1e-6),      # wide points
+    ((2, 300, 17), torch.float32, 1e-6),
+    ((70000, 8, 2), torch.float32, 1e-6),    # more than a grid axis holds
+    ((2, 1001, 3), torch.float64, 1e-14),
 ])
 def test_rbf_cov_kernel_matches_plain(cuda, shape, dtype, atol):
     """Same direct-difference form in both: they differ by the rounding of
-    exp and of a fused multiply-add (values are at most amp + noise = 1.01)."""
+    exp and of a fused multiply-add (values are at most amp + noise = 1.01).
+    One launch per call, and K is exactly symmetric: the kernel stores each
+    tile's transpose from the same registers."""
     X = torch.tensor(np.random.RandomState(0).rand(*shape), dtype=dtype,
                      device=cuda)
     before = rbf_covariance_pallas.launches
@@ -112,6 +122,7 @@ def test_rbf_cov_kernel_matches_plain(cuda, shape, dtype, atol):
     assert K.shape == shape[:-1] + (shape[-2],) and K.dtype == dtype
     plain = rbf_covariance_pallas_plain(X, 0.25, 1.0, 1e-2)
     assert (K - plain).abs().max().item() < atol
+    assert torch.equal(K, K.mT)
 
 
 @pytest.mark.parametrize('B,N,block', [(2, 1024, 256), (3, 512, 128),

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from gsum_tpu.ops import rbf_covariance_pallas as jax_rbf
-from gsum_tpu_torch.ops import rbf_covariance_pallas
+from gsum_tpu_torch.ops import (rbf_covariance_pallas,
+                                rbf_covariance_pallas_plain)
 
 from _port import compare
 
@@ -29,12 +30,13 @@ def _pair(ls=LS, amp=AMP, noise=NOISE):
             lambda X: rbf_covariance_pallas(X, ls, amp, noise))
 
 
-@pytest.mark.parametrize('d', [1, 2, 3])
+@pytest.mark.parametrize('d', [1, 2, 3, 9])
 @pytest.mark.parametrize('N', [24, 64])
 @pytest.mark.parametrize('batch', [None, 3])
 def test_rbf_covariance_pallas_matches_jax_f64(batch, N, d):
-    """f64, one point set and a batch: atol 1e-12 (the two forms differ by
-    round-off of order 1e-15 at these scales)."""
+    """f64, one point set and a batch, up to d = 9 (more dimensions than
+    the kernel staged at a time before): atol 1e-12 (the two forms differ
+    by round-off of order 1e-15 at these scales)."""
     shape = (N, d) if batch is None else (batch, N, d)
     before = rbf_covariance_pallas.launches
     compare(*_pair(), (_points(N + d, shape, np.float64),), atol=1e-12)
@@ -48,6 +50,16 @@ def test_rbf_covariance_pallas_matches_jax_f32(shape):
     points in the unit cube at ls = 0.5)."""
     compare(*_pair(LS, 1.0, 1e-2), (_points(7, shape, np.float32),),
             atol=2e-6)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_rbf_covariance_pallas_plain_is_exactly_symmetric(dtype):
+    """K equals its transpose bit for bit: (a − b)² rounds as (b − a)²
+    does.  The kernel computes only the tiles on and above the diagonal and
+    mirrors them, so this is the property it must reproduce."""
+    X = torch.from_numpy(_points(5, (2, 70, 3), np.float64)).to(dtype)
+    K = rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
+    assert torch.equal(K, K.mT)
 
 
 def test_rbf_covariance_pallas_scalar_forms():
