@@ -14,7 +14,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      call, K exactly symmetric;
    - ``fused_blocked_cholesky`` (K3) and an f64 factor at (2, 1024) and
      (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
-4. drives the three paths once each, with every kernel's launch count set
+4. drives the five paths once each, with every kernel's launch count set
    to 0 just before and read just after:
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
@@ -24,6 +24,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      and the blocked route;
    - ``ops.rbf_covariance_pallas`` at B=16, N=4096, d=2, against its plain
      version and an f64 build, and exactly symmetric;
+   - the single-model conjugate GP in f64 (``models.ConjugateGaussianProcess``
+     at N=4096, d=2, 5 curves: fit, predict at 512 points with std and with
+     cov), against the same calls of the port on the CPU, and with
+     ``chol_engine='blocked'``; then ``entry.flagship_step`` at N=4096
+     against its CPU run.  f64 reaches no kernel, as in JAX;
+   - the blocked autograd path in f32 at (16, 4096): forward and backward of
+     ``ops.blocked_spd_solve_logdet`` (block 128) and of
+     ``ops.batched_blocked_cholesky`` (block 256), the diagonal kernel in
+     their forwards only, their gradients against an f64 ``torch.linalg``
+     autograd reference beside the f32 ``torch.linalg`` route's;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -34,7 +44,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    K2 also ``fill_`` of the same memory, the practical rate of writing it,
    and K2 in f64 (context too);
 6. profiles each headline pipeline once with ``torch.profiler``: device
-   time by kernel and the device's idle share.
+   time by kernel and the device's idle share;
+7. times the single model's fit, lml + gradient and predict, and the
+   blocked autograd routes' forward + backward, and profiles one lml +
+   gradient and one forward + backward of ``blocked_spd_solve_logdet``.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -47,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -55,6 +69,9 @@ B, N, D, M = 16, 4096, 2, 8          # bench.py's headline configuration
 LS, AMP, NOISE = 0.25, 1.0, 1e-2
 NB_CHECK = (32, 128, 256, 512)
 REL_TOL = 1e-3                       # f32 pipeline vs f64, and vs plain diag
+GP_N, GP_D, GP_CURVES, GP_NEW = 4096, 2, 5, 512   # the single-model path
+GP_TOL, GP_GRAD_TOL = 1e-9, 1e-7     # card vs CPU, f64
+FLAGSHIP_THETA = (0.01, 0.1)         # its constant and length scale
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
 KERNELS = {
@@ -289,6 +306,262 @@ def reference_logpdf(X, y):
 
 def max_rel(a, b):
     return ((a.double() - b.double()).abs() / b.double().abs()).max().item()
+
+
+def rel_err(a, ref):
+    """max |a − ref| / max |ref|: the error against the result's own scale
+    (element-wise ratios blow up where a curve crosses zero)."""
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def gp_data():
+    """The single-model path's data: N points in the unit square and, per
+    curve k (an EFT order), sin(3x₀ + k)·cos(2x₁) + 0.01·ε; 512 new points."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(GP_N, GP_D)
+    y = np.stack([np.sin(3 * X[:, 0] + k) * np.cos(2 * X[:, 1])
+                  for k in range(GP_CURVES)], axis=1) \
+        + 0.01 * rng.randn(GP_N, GP_CURVES)
+    return X, y, rng.rand(GP_NEW, GP_D)
+
+
+def gp_model(device, **kw):
+    from gsum_tpu_torch import RBF, ConjugateGaussianProcess, WhiteKernel
+
+    kernel = kw.pop('kernel', None) or \
+        RBF(0.3, (1e-2, 10)) + WhiteKernel(1e-4, (1e-8, 1e-1))
+    return ConjugateGaussianProcess(kernel, center=0, disp=0, df=3, scale=1,
+                                    device=device, **kw)
+
+
+def single_model_path(card):
+    """Path 3: ConjugateGaussianProcess fit and predict at N=4096 in f64 on
+    the card, checked against the same calls of the port on the CPU (at the
+    fitted θ) and against ``chol_engine='blocked'``; then the flagship step
+    at N=4096 against its CPU run.  Returns the launch counts."""
+    from gsum_tpu_torch.entry import flagship_step
+    from gsum_tpu_torch.optimize import ConvergenceWarning, scipy_lbfgsb
+
+    X, y, Xnew = gp_data()
+    evaluations = []
+
+    def optimizer(obj_func, theta0, bounds):
+        """scipy_lbfgsb with its evaluations counted; an abnormal end
+        (warnflag ≠ 0, a ConvergenceWarning) raises."""
+        def counted(theta):
+            evaluations.append(theta)
+            return obj_func(theta)
+        with warnings.catch_warnings():
+            warnings.simplefilter('error', ConvergenceWarning)
+            return scipy_lbfgsb(counted, theta0, bounds)
+
+    gp = gp_model('cuda', optimizer=optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        gp.fit(X, y)
+        stop.record()
+        return gp.predict(Xnew, return_std=True), gp.predict(Xnew,
+                                                            return_cov=True)
+    ((m, sd), (_, cov)), counts = drive(run)
+    fit_ms = start.elapsed_time(stop)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    theta = gp.kernel_.theta
+    lo, hi = gp.kernel_.bounds.T
+    print(f'main path (single model): ConjugateGaussianProcess N={GP_N} '
+          f'd={GP_D} curves={GP_CURVES} f64: fit {fit_ms:.1f} ms over '
+          f'{len(evaluations)} evaluations, θ = {theta.tolist()} (bounds '
+          f'{gp.kernel_.bounds.tolist()}), lml '
+          f'{gp.log_marginal_likelihood_value_:.10g}, peak memory '
+          f'{peak_gib:.2f} GiB, launches {counts}')
+    if any(counts.values()):
+        raise AssertionError(f'the f64 model launched a kernel: {counts}')
+    if not np.all((lo <= theta) & (theta <= hi)):
+        raise AssertionError('fitted θ outside its bounds')
+    if not (m.shape == (GP_NEW, GP_CURVES) and sd.shape == (GP_NEW,)
+            and cov.shape == (GP_NEW, GP_NEW) and torch.isfinite(m).all()
+            and torch.isfinite(sd).all() and torch.isfinite(cov).all()):
+        raise AssertionError('bad predictions from the single model')
+
+    cpu = gp_model('cpu', kernel=gp.kernel_.clone(), optimizer=None).fit(X, y)
+    lml, grad = gp.log_marginal_likelihood(theta, True)
+    lml_c, grad_c = cpu.log_marginal_likelihood(theta, True)
+    # the fit drives the gradient to zero, so its error is measured against
+    # the gradient's scale where the fit starts, and there as is
+    theta0 = gp.kernel.theta
+    grad0 = gp.log_marginal_likelihood(theta0, True)[1]
+    grad0_c = cpu.log_marginal_likelihood(theta0, True)[1]
+    m_c, sd_c = cpu.predict(Xnew, return_std=True)
+    blocked = gp_model('cuda', chol_engine='blocked').log_marginal_likelihood(
+        theta, X=X, y=y)
+    errs = {'lml': rel_err(lml, lml_c),
+            'gradient at the start': rel_err(grad0, grad0_c),
+            'gradient at the fitted θ (by the start gradient)':
+            ((grad.cpu() - grad_c).abs().max() / grad0_c.abs().max()).item(),
+            'mean': rel_err(m, m_c), 'std': rel_err(sd, sd_c),
+            "chol_engine='blocked' lml": rel_err(blocked, lml)}
+    print(f'main path (single model): gradient at the start θ '
+          f'{theta0.tolist()}: {grad0_c.tolist()}, at the fitted θ: card '
+          f'{grad.tolist()}, CPU {grad_c.tolist()}')
+    print('main path (single model): card vs CPU: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (limits: gradients {GP_GRAD_TOL:g}, others {GP_TOL:g})')
+    if not all(v <= (GP_GRAD_TOL if k.startswith('gradient') else GP_TOL)
+               for k, v in errs.items()):
+        raise AssertionError('the single model on the card disagrees with '
+                             'the CPU')
+
+    # the flagship step at full width, at a fixed θ
+    theta_f = np.log(FLAGSHIP_THETA)
+    ys = y                                   # 5 curves
+    outs = []
+    for dev in ('cuda', 'cpu'):
+        step = flagship_step(dev)[0]
+        th = torch.tensor(theta_f, device=dev, requires_grad=True)
+        m_f, K_f, lml_f = step(th, X, ys, Xnew)
+        (g_f,) = torch.autograd.grad(lml_f, th)
+        # far from the data K_pred is the prior covariance: the scale of
+        # the two terms whose difference K_pred is
+        prior = step(theta_f, X, ys, Xnew + 1e3)[1].abs().max()
+        outs.append((m_f, K_f, lml_f, g_f, prior))
+    (m_g, K_g, l_g, g_g, _), (m_c, K_c, l_c, g_c, prior) = outs
+    errs = {'m_pred': rel_err(m_g, m_c),
+            'K_pred (by the prior scale)': ((K_g.cpu() - K_c).abs().max()
+                                            / prior).item(),
+            'lml': rel_err(l_g, l_c), 'gradient': rel_err(g_g, g_c)}
+    print(f'main path (flagship): flagship_step N={GP_N} new={GP_NEW} '
+          f'θ=log{FLAGSHIP_THETA}: lml {l_g.item():.10g}, card vs CPU: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+    if not (errs['gradient'] <= GP_GRAD_TOL
+            and all(v <= GP_TOL for k, v in errs.items() if k != 'gradient')):
+        raise AssertionError('the flagship step on the card disagrees with '
+                             'the CPU')
+    del cpu, outs
+    return gp, Xnew, counts
+
+
+def time_single_model(gp, Xnew, card):
+    X, y, _ = gp_data()
+    theta = gp.kernel_.theta
+    t = time_ms({'lml + gradient': lambda: gp.log_marginal_likelihood(
+                     theta, True),
+                 'lml': lambda: gp.log_marginal_likelihood(theta),
+                 'predict std': lambda: gp.predict(Xnew, return_std=True),
+                 'predict cov': lambda: gp.predict(Xnew, return_cov=True)})
+    fit = gp_model('cuda')
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fit.fit(X, y)
+    stop.record()
+    stop.synchronize()
+    print(f'timing [{card}] single model N={GP_N} f64: fit '
+          f'{start.elapsed_time(stop):.1f} ms (host clock '
+          f'{(time.perf_counter() - t0) * 1e3:.1f} ms; a second fit, '
+          f'from the same start), '
+          + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    profile(f'single model lml + gradient N={GP_N} f64 [{card}]',
+            lambda: gp.log_marginal_likelihood(theta, True))
+
+
+def blocked_grads(route, K, Y, G, g):
+    """(K̄ symmetrized, Ȳ) of ⟨x, G⟩ + ⟨logdet, g⟩, x = K⁻¹Y, through one
+    route; and the launch counts of its forward and of its backward."""
+    from gsum_tpu_torch.ops import (batched_blocked_cholesky,
+                                    blocked_spd_solve_logdet)
+
+    K = K.detach().requires_grad_(True)
+    Y = Y.detach().requires_grad_(True)
+
+    def forward():
+        if route == 'blocked_spd_solve_logdet':
+            x, logdet, ok = blocked_spd_solve_logdet(K, Y, block=128)
+            if not ok.all():
+                raise AssertionError('blocked_spd_solve_logdet failed')
+        else:
+            L = (batched_blocked_cholesky(K, block=256)
+                 if route == 'batched_blocked_cholesky'
+                 else torch.linalg.cholesky_ex(K).L)
+            x = torch.cholesky_solve(Y, L)
+            logdet = 2 * torch.log(torch.diagonal(L, dim1=-2,
+                                                  dim2=-1)).sum(-1)
+        return (x * G.to(x.dtype)).sum() + (logdet * g.to(x.dtype)).sum()
+
+    loss, fwd = drive(forward)
+    (Kbar, Ybar), bwd = drive(lambda: torch.autograd.grad(loss, (K, Y)))
+    return (0.5 * (Kbar + Kbar.mT), Ybar), fwd, bwd
+
+
+def rel_fro(a, ref):
+    """The largest per-matrix relative Frobenius distance."""
+    d = (a.double() - ref).flatten(1).norm(dim=1)
+    return (d / ref.flatten(1).norm(dim=1)).max().item()
+
+
+def blocked_autograd_path(X, y, card):
+    """Path 4: the differentiable blocked functions in f32 at the headline
+    size, their K1 launches, and their gradients against an f64
+    ``torch.linalg`` autograd reference (the 10× rule) and in f64."""
+    from gsum_tpu_torch.ops import rbf_covariance
+
+    K = rbf_covariance(X, LS, AMP, NOISE)
+    gen = torch.Generator(device=X.device).manual_seed(5)
+    G = torch.randn(B, N, M, generator=gen, device=X.device)
+    g = torch.randn(B, generator=gen, device=X.device)
+    ref, _, _ = blocked_grads('torch.linalg', K.double(), y.double(), G, g)
+    f32, _, _ = blocked_grads('torch.linalg', K, y, G, g)
+    err32 = [rel_fro(a, r) for a, r in zip(f32, ref)]
+    del f32
+    print(f'main path (blocked autograd): f32 torch.linalg autograd route vs '
+          f'f64 reference: K̄ {err32[0]:.3e}, Ȳ {err32[1]:.3e} (largest '
+          f'per-matrix relative Frobenius distance)')
+    launches = {}
+    for route, want in (('blocked_spd_solve_logdet', N // 128),
+                        ('batched_blocked_cholesky', N // 256)):
+        got, fwd, bwd = blocked_grads(route, K, y, G, g)
+        err = [rel_fro(a, r) for a, r in zip(got, ref)]
+        del got
+        got64, fwd64, bwd64 = blocked_grads(route, K.double(), y.double(), G,
+                                            g)
+        err64 = [rel_fro(a, r) for a, r in zip(got64, ref)]
+        del got64
+        launches[route] = fwd['chol_inv_block'], bwd['chol_inv_block']
+        print(f'main path (blocked autograd): {route} f32 B={B} N={N}: '
+              f'launches forward {fwd}, backward {bwd}; vs f64 reference '
+              f'K̄ {err[0]:.3e}, Ȳ {err[1]:.3e} (limit 10× the f32 '
+              f'torch.linalg route); f64 (diag=recursive): K̄ '
+              f'{err64[0]:.3e}, Ȳ {err64[1]:.3e} (limit 1e-9), launches '
+              f'{fwd64} / {bwd64}')
+        if launches[route] != (want, 0) or any(fwd64.values()) \
+                or any(bwd.values()) or any(bwd64.values()):
+            raise AssertionError(f'{route}: expected {want} chol_inv_block '
+                                 f'launches in the forward and none in the '
+                                 f'backward, got {fwd} / {bwd}')
+        if not (all(e <= 10 * e32 for e, e32 in zip(err, err32))
+                and all(e <= 1e-9 for e in err64)):
+            raise AssertionError(f'{route}: gradients disagree with the f64 '
+                                 f'reference')
+    del ref
+
+    def fwd_bwd(route, K, Y):
+        return lambda: blocked_grads(route, K, Y, G, g)
+    t = time_ms({'blocked_spd_solve_logdet (K1, block 128)':
+                 fwd_bwd('blocked_spd_solve_logdet', K, y),
+                 'batched_blocked_cholesky (K1, block 256) + cholesky_solve':
+                 fwd_bwd('batched_blocked_cholesky', K, y),
+                 'torch.linalg cholesky_ex + cholesky_solve':
+                 fwd_bwd('torch.linalg', K, y)}, rounds=4)
+    print(f'timing [{card}] blocked autograd f32 B={B} N={N} m={M}, forward '
+          f'+ backward: ' + ', '.join(f'{k} {v:.3f} ms'
+                                      for k, v in t.items()))
+    profile(f'blocked_spd_solve_logdet forward + backward [{card}]',
+            fwd_bwd('blocked_spd_solve_logdet', K, y))
+    return launches
 
 
 def drive(fn):
@@ -533,6 +806,12 @@ def main():
     for label, kw in (('blocked', {'method': 'auto'}),
                       ('fused', {'method': 'fused'})):
         profile(f'pipeline {label} [{card}]', pipeline(**kw))
+
+    # path 3: the single-model conjugate GP, f64; path 4: blocked autograd
+    gp, Xnew, _ = single_model_path(card)
+    time_single_model(gp, Xnew, card)
+    del gp
+    blocked_autograd_path(X, y, card)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

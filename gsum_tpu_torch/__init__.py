@@ -9,10 +9,33 @@ Ported so far: the batched f32 pipeline ``ops.batched_chol_logpdf``
 with its three kernels written in CUDA for ``sm_90a``: the diagonal-block
 factor and inverse (``csrc/chol_inv_block.cu``), the single-kernel blocked
 Cholesky of ``method='fused'`` (``csrc/fused_chol.cu``) and the tiled RBF
-covariance build ``ops.rbf_covariance_pallas`` (``csrc/rbf_cov.cu``).  ``convert.to_torch`` moves the JAX
-package's inputs (numpy arrays and scalars) onto a device.
+covariance build ``ops.rbf_covariance_pallas`` (``csrc/rbf_cov.cu``); the
+differentiable blocked functions ``ops.batched_blocked_cholesky`` and
+``ops.blocked_spd_solve_logdet``; and the single-model conjugate GP path:
+``kernels``, ``linalg``, ``conjugate``, ``optimize.scipy_lbfgsb``,
+``models.ConjugateGaussianProcess`` and ``entry.flagship_step``.
+``convert.to_torch`` moves the JAX package's inputs (numpy arrays and
+scalars) onto a device, and ``convert.to_torch_kernel`` its kernels.
 """
-from . import convert, ops
-from ._config import default_dtype, resolve_device
+from . import conjugate, convert, entry, kernels, linalg, models, ops, optimize
+from ._config import default_device, default_dtype, resolve_device
+from .kernels import (
+    RBF,
+    ConstantKernel,
+    DotProduct,
+    Exponentiation,
+    ExpSineSquared,
+    Matern,
+    Product,
+    RationalQuadratic,
+    Sum,
+    WhiteKernel,
+)
+from .models import BaseConjugateProcess, ConjugateGaussianProcess
 
-__all__ = ['convert', 'ops', 'default_dtype', 'resolve_device']
+__all__ = ['conjugate', 'convert', 'entry', 'kernels', 'linalg', 'models',
+           'ops', 'optimize', 'default_device', 'default_dtype',
+           'resolve_device', 'ConstantKernel', 'WhiteKernel', 'RBF', 'Matern',
+           'RationalQuadratic', 'ExpSineSquared', 'DotProduct', 'Sum',
+           'Product', 'Exponentiation', 'BaseConjugateProcess',
+           'ConjugateGaussianProcess']

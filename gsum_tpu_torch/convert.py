@@ -2,9 +2,10 @@ R"""Conversion of the JAX package's inputs and state into the port's tensors.
 
 ``gsum_tpu`` takes numpy arrays and Python scalars; its results come back as
 arrays that ``numpy.asarray`` reads.  :func:`to_torch` turns such values, or
-dicts, tuples and lists of them, into tensors on an explicit device.  In the
-ported slice the state is the pipeline's ``(X, y, length_scale, amplitude,
-noise)``; the function grows when the kernels' θ vectors are ported.
+dicts, tuples and lists of them, into tensors on an explicit device.
+:func:`to_torch_kernel` rebuilds a ``gsum_tpu`` kernel as the port's kernel
+of the same class and parameters (its θ, bounds and fixed flags come along).
+Neither imports the JAX package: kernels are read by duck typing.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ._config import resolve_device
 
-__all__ = ['to_torch']
+__all__ = ['to_torch', 'to_torch_kernel']
 
 
 def to_torch(tree, device, dtype=None):
@@ -52,3 +53,24 @@ def to_torch(tree, device, dtype=None):
         return t.to(device)
 
     return leaf(tree)
+
+
+def to_torch_kernel(k):
+    """The port's kernel equal to ``k``, a ``gsum_tpu`` kernel (or any
+    object with the scikit-learn kernel protocol).
+
+    The class is found by name in :mod:`gsum_tpu_torch.kernels` and built
+    from ``k.get_params(deep=False)``; sub-kernels (``k1`` / ``k2`` of a sum
+    or product, ``kernel`` of an exponentiation) are converted the same
+    way.  Parameter values (numbers, numpy arrays, bounds, ``'fixed'``)
+    cross as they are.
+    """
+    from . import kernels
+
+    name = type(k).__name__
+    cls = getattr(kernels, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, kernels.Kernel)):
+        raise TypeError(f'no kernel {name!r} in gsum_tpu_torch.kernels')
+    params = {key: to_torch_kernel(v) if key in ('k1', 'k2', 'kernel') else v
+              for key, v in k.get_params(deep=False).items()}
+    return cls(**params)

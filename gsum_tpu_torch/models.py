@@ -1,0 +1,698 @@
+R"""Conjugacy-based Gaussian-process models (counterpart of the conjugate GP
+part of ``gsum_tpu/models.py``).
+
+``ConjugateGaussianProcess`` and its base class ``BaseConjugateProcess``
+keep the JAX package's public API (constructor arguments,
+``fit`` / ``predict`` / ``log_marginal_likelihood`` / ``sample_y``, the
+trailing-underscore fitted attributes), with PyTorch inside:
+
+- The log-marginal likelihood is one plain function of the kernel's
+  log-parameter tensor; its gradient comes from autograd.  PyTorch runs
+  eagerly, so the JAX package's per-structure jit caches have no
+  counterpart, and there is one body each for the lml, the fitted state
+  and the prediction.
+- A failed Cholesky gives NaN (``linalg.cholesky``), never an exception:
+  the lml is ``where(ok, lml, -inf)``, computed on a sanitized
+  re-factorization so that its gradient stays finite.
+- The delta-mean (V₀ = 0) and known-scale (ν₀ = ∞) limits are resolved from
+  the concrete prior values in Python.
+
+Devices and dtypes: a model lives on ``device`` (the CUDA card unless
+``device='cpu'`` is given); its data, whatever they come as, are moved
+there and cast to the promoted dtype of themselves and float64, as JAX's
+x64 promotion gives, so an f32 ``X`` gives f64 results.
+
+Not ported yet: derivative observations (``fit`` / ``predict`` with a
+non-zero ``dorders``), which need ``derivs`` (ROADMAP.md queue A, model
+checking), ``ConjugateStudentProcess`` and the truncation models (queue A,
+the rest of the models); the ``_fused_kind`` / ``_fused_extra`` hooks are
+where the Student-t process adds its mean-uncertainty term.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import conjugate as _conj
+from ._config import as_input, resolve_device, result_dtype
+from .kernels import RBF, ConstantKernel
+from .linalg import cholesky, eigh_sqrt, logdet_sqrt, solve_sqrt
+from .ops.blockchol import batched_blocked_cholesky
+from .optimize import ConvergenceWarning, scipy_lbfgsb
+
+_LOG_2PI = math.log(2 * math.pi)
+
+__all__ = ['BaseConjugateProcess', 'ConjugateGaussianProcess',
+           'ConvergenceWarning']
+
+
+def _default_basis(X):
+    return torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
+
+
+def _no_derivatives(dorders, where):
+    if dorders is not None and np.any(np.asarray(dorders)):
+        raise NotImplementedError(
+            f'derivative observations ({where}(dorders=...) with a non-zero '
+            'order) are not ported yet: they need gsum_tpu_torch.derivs, '
+            'which comes with the model-checking slice')
+
+
+class BaseConjugateProcess:
+    R"""Base class for the conjugate stochastic-process estimators.
+
+    Parameters
+    ----------
+    kernel : Kernel, optional — defaults to ``1**2 * RBF(1.0)`` with fixed
+        hyperparameters.
+    center : float or array — prior mean-coefficient center η₀
+    disp : float or array — prior dispersion V₀ (0 ⇒ mean known exactly)
+    df : float — prior degrees of freedom ν₀ (∞ ⇒ scale known exactly)
+    scale : float — prior scale τ₀
+    sd : float, optional — shortcut for ν₀=∞, τ₀=sd
+    basis : callable, optional — X ↦ (n, p) basis matrix for the mean
+    nugget : float — diagonal jitter added to the correlation matrix
+    optimizer : 'fmin_l_bfgs_b', callable, or None
+    n_restarts_optimizer : int
+    copy_X_train : bool
+    random_state : int or None — seeds the optimizer restarts and
+        ``sample_y``'s default generator
+    decomposition : 'cholesky' or 'eig'
+    chol_engine : 'auto', 'xla', or 'blocked' — Cholesky engine of the
+        lml, fit and predict.  'xla' is ``torch.linalg.cholesky_ex``
+        (the name is the JAX package's); 'blocked' is
+        ``ops.batched_blocked_cholesky``; 'auto' picks between them (see
+        ``_auto_chol``).
+    device : where the model computes; the CUDA card by default.  It is
+        refused where no card is visible (no CPU fallback).
+    """
+
+    def __init__(self, kernel=None, center=0, disp=0, df=1, scale=1, sd=None,
+                 basis=None, nugget=1e-10, optimizer='fmin_l_bfgs_b',
+                 n_restarts_optimizer=0, copy_X_train=True, random_state=None,
+                 decomposition='cholesky', chol_engine='auto', device='cuda'):
+        self.kernel = kernel
+
+        self._center_0 = np.atleast_1d(center)
+        self._disp_0 = np.atleast_2d(disp)
+        if sd is not None:
+            self._df_0 = np.inf
+            self._scale_0 = sd
+        else:
+            self._df_0 = df
+            self._scale_0 = scale
+
+        self._fit = False
+        self.X_train_ = None
+        self.y_train_ = None
+        self.dorders_ = None
+        self.corr_L_ = self.corr_sqrt_ = None
+        self.corr_ = None
+        self.center_ = None
+        self.disp_ = None
+        self.df_ = None
+        self.scale_ = None
+        self.cov_factor_ = None
+        self.cbar_sq_mean_ = None
+        self.kernel_ = None
+        self._eigh_tuple_ = None
+        self.log_marginal_likelihood_value_ = None
+
+        self.nugget = nugget
+        self.copy_X_train = copy_X_train
+        self.random_state = random_state
+        self.n_restarts_optimizer = n_restarts_optimizer
+        self.optimizer = optimizer
+        self.decomposition = decomposition
+        self.chol_engine = chol_engine
+        _resolve_chol_fn(chol_engine)  # validate eagerly
+        self.device = resolve_device(device)
+
+        self._default_kernel = ConstantKernel(1.0, constant_value_bounds='fixed') * \
+            RBF(1.0, length_scale_bounds='fixed')
+
+        if basis is None:
+            self.basis = _default_basis
+        else:
+            self.basis = basis
+        self.basis_train_ = None
+
+    # ------------------------------------------------------------------
+    # Inputs
+    # ------------------------------------------------------------------
+    def _tensor(self, a):
+        """``a`` on the model's device, in the promoted dtype of its own
+        and float64."""
+        t = as_input(a, device=self.device)
+        return t.to(device=self.device, dtype=result_dtype(t.dtype))
+
+    def _points(self, X):
+        return torch.atleast_2d(self._tensor(X))
+
+    def _basis(self, X):
+        return self._tensor(self.basis(X))
+
+    def _theta(self):
+        return self._tensor(self.kernel_.theta)
+
+    # ------------------------------------------------------------------
+    # Prior accessors
+    # ------------------------------------------------------------------
+    @property
+    def center0(self):
+        return self._center_0
+
+    @property
+    def disp0(self):
+        return self._disp_0
+
+    @property
+    def df0(self):
+        return self._df_0
+
+    @property
+    def scale0(self):
+        return self._scale_0
+
+    # ------------------------------------------------------------------
+    # Conjugate updates: thin wrappers over gsum_tpu_torch.conjugate
+    # ------------------------------------------------------------------
+    @classmethod
+    def compute_center(cls, y, sqrt_R, basis, center0, disp0,
+                       decomposition='cholesky'):
+        return _conj.compute_center(y, sqrt_R, basis, center0, disp0,
+                                    decomposition=decomposition)
+
+    @classmethod
+    def compute_disp(cls, y, sqrt_R, basis, disp0, decomposition='cholesky'):
+        return _conj.compute_disp(y, sqrt_R, basis, disp0,
+                                  decomposition=decomposition)
+
+    @classmethod
+    def compute_df(cls, y, df0):
+        return _conj.compute_df(y, df0)
+
+    @classmethod
+    def compute_scale_sq(cls, y, sqrt_R, basis, center0, disp0, df0, scale0,
+                         decomposition='cholesky'):
+        return _conj.compute_scale_sq(y, sqrt_R, basis, center0, disp0, df0,
+                                      scale0, decomposition=decomposition)
+
+    @classmethod
+    def compute_scale_sq_v2(cls, y, sqrt_R, basis, center0, disp0, df0,
+                            scale0, decomposition='cholesky'):
+        """Direct (non-Woodbury) form of the scale update, kept as a
+        numerical cross-check."""
+        return _conj.compute_scale_sq_v2(y, sqrt_R, basis, center0, disp0,
+                                         df0, scale0,
+                                         decomposition=decomposition)
+
+    @staticmethod
+    def solve_sqrt(sqrt_mat, y, decomposition):
+        return solve_sqrt(sqrt_mat, y, decomposition)
+
+    @staticmethod
+    def compute_cov_factor(scale_sq, df):
+        return _conj.compute_cov_factor(scale_sq, df)
+
+    @staticmethod
+    def num_y(y):
+        return _conj.num_y(y)
+
+    @staticmethod
+    def avg_y(y):
+        return _conj.avg_y(y)
+
+    # ------------------------------------------------------------------
+    # Posterior hyperparameter accessors
+    # ------------------------------------------------------------------
+    def _sqrt_R_train(self):
+        if self.decomposition == 'cholesky':
+            return self.corr_sqrt_
+        elif self.decomposition == 'eig':
+            return self._eigh_tuple_
+        raise ValueError('decomposition must be either "cholesky" or "eig"')
+
+    def center(self):
+        return self.compute_center(
+            y=self.y_train_, sqrt_R=self._sqrt_R_train(), basis=self.basis_train_,
+            center0=self.center0, disp0=self.disp0, decomposition=self.decomposition)
+
+    def disp(self):
+        return self.compute_disp(
+            y=self.y_train_, sqrt_R=self._sqrt_R_train(), basis=self.basis_train_,
+            disp0=self.disp0, decomposition=self.decomposition)
+
+    def df(self):
+        return self.compute_df(y=self.y_train_, df0=self.df0)
+
+    def scale(self):
+        scale_sq = self.compute_scale_sq(
+            y=self.y_train_, sqrt_R=self._sqrt_R_train(), basis=self.basis_train_,
+            center0=self.center0, disp0=self.disp0, df0=self.df0,
+            scale0=self.scale0, decomposition=self.decomposition)
+        return torch.sqrt(scale_sq)
+
+    # ------------------------------------------------------------------
+    # Mean / covariance of the underlying process
+    # ------------------------------------------------------------------
+    def mean(self, X):
+        """MAP mean of the process at X (not the interpolant — see predict)."""
+        X = self._points(X)
+        center = self.center_ if self._fit else self._tensor(
+            np.atleast_1d(np.asarray(self.center0, dtype=float)))
+        return self._basis(X) @ center
+
+    def cov(self, X, Xp=None):
+        X = self._points(X)
+        if Xp is not None:
+            Xp = self._points(Xp)
+        if not self._fit:
+            if self.df0 <= 2:
+                raise ValueError('df must be greater than 2 for the covariance to exist')
+            cov_factor = self.compute_cov_factor(scale_sq=self.scale0 ** 2, df=self.df0)
+            kernel = self.kernel if self.kernel is not None else self._default_kernel
+        else:
+            cov_factor = self.cov_factor_
+            kernel = self.kernel_
+        # Xp deliberately not defaulted to X: WhiteKernel(X) and
+        # WhiteKernel(X, X) differ
+        return cov_factor * kernel(X, Xp)
+
+    # ------------------------------------------------------------------
+    # The log-marginal likelihood
+    # ------------------------------------------------------------------
+    def _kernel_for_lml(self):
+        if self.kernel_ is not None:
+            return self.kernel_
+        if self.kernel is None:
+            return self._default_kernel
+        return self.kernel
+
+    def _lml(self, kernel, theta, X, y2, basis):
+        """The log-marginal likelihood at ``theta`` (a tensor), as a
+        differentiable 0-d tensor; each model class writes its own."""
+        raise NotImplementedError
+
+    def _lml_and_grad(self, kernel, theta, X, y2, basis, eval_gradient):
+        """The lml at ``theta``, and with ``eval_gradient`` its autograd
+        gradient in θ; both detached."""
+        if not eval_gradient:
+            with torch.no_grad():
+                return self._lml(kernel, theta, X, y2, basis)
+        theta = theta.detach().requires_grad_(True)
+        with torch.enable_grad():
+            lml = self._lml(kernel, theta, X, y2, basis)
+            (grad,) = torch.autograd.grad(lml, theta, allow_unused=True)
+        if grad is None:            # no free hyperparameter reaches the lml
+            grad = torch.zeros_like(theta)
+        return lml.detach(), grad
+
+    def log_marginal_likelihood(self, theta=None, eval_gradient=False, X=None, y=None):
+        """Log-marginal likelihood of theta for the training data (or for
+        ``X`` / ``y``); with ``eval_gradient``, ``(lml, dlml/dθ)``."""
+        if theta is None:
+            if self._fit:
+                if eval_gradient:
+                    raise ValueError('Gradient can only be evaluated for theta!=None')
+                return self.log_marginal_likelihood_value_
+            theta = self._kernel_for_lml().theta
+
+        kernel = self._kernel_for_lml()
+        X = self._points(self.X_train_ if X is None else X)
+        y = self._tensor(self.y_train_ if y is None else y)
+        y2 = y[:, None] if y.ndim == 1 else y
+        return self._lml_and_grad(kernel, self._tensor(theta), X, y2,
+                                  self._basis(X), eval_gradient)
+
+    # ------------------------------------------------------------------
+    # Kernel calibration
+    # ------------------------------------------------------------------
+    def _constrained_optimization(self, obj_func, initial_theta, bounds):
+        if self.optimizer == 'fmin_l_bfgs_b':
+            return scipy_lbfgsb(obj_func, initial_theta, bounds)
+        elif callable(self.optimizer):
+            return self.optimizer(obj_func, initial_theta, bounds=bounds)
+        raise ValueError('Unknown optimizer %s.' % self.optimizer)
+
+    def _calibrate_kernel(self):
+        if self.optimizer is not None and self.kernel_.n_dims > 0:
+            kernel = self.kernel_.clone()
+            X, basis = self.X_train_, self.basis_train_
+            y2 = self.y_train_[:, None] if self.y_train_.ndim == 1 else self.y_train_
+
+            def obj_func(theta, eval_gradient=True):
+                theta = self._tensor(theta)
+                if eval_gradient:
+                    lml, grad = self._lml_and_grad(kernel, theta, X, y2, basis,
+                                                   True)
+                    # one device-to-host copy per evaluation
+                    out = torch.cat([lml[None], grad]).cpu().numpy()
+                    return -out[0], -out[1:]
+                return -self._lml_and_grad(kernel, theta, X, y2, basis,
+                                           False).item()
+
+            optima = [self._constrained_optimization(
+                obj_func, self.kernel_.theta, self.kernel_.bounds)]
+
+            if self.n_restarts_optimizer > 0:
+                if not np.isfinite(self.kernel_.bounds).all():
+                    raise ValueError(
+                        'Multiple optimizer restarts (n_restarts_optimizer>0) '
+                        'requires that all bounds are finite.')
+                bounds = self.kernel_.bounds
+                rng = np.random.RandomState(
+                    self.random_state if isinstance(self.random_state, (int, np.integer))
+                    else None)
+                for _ in range(self.n_restarts_optimizer):
+                    theta_initial = rng.uniform(bounds[:, 0], bounds[:, 1])
+                    optima.append(self._constrained_optimization(
+                        obj_func, theta_initial, bounds))
+
+            lml_values = [opt[1] for opt in optima]
+            best = int(np.argmin(lml_values))
+            self.kernel_.theta = optima[best][0]
+            self.log_marginal_likelihood_value_ = -np.min(lml_values)
+        else:
+            self.log_marginal_likelihood_value_ = self.log_marginal_likelihood(
+                self.kernel_.theta)
+
+    # ------------------------------------------------------------------
+    # Fit
+    # ------------------------------------------------------------------
+    def fit(self, X, y, dorders=None):
+        R"""Fits the process to data (X, y) and updates all hyperparameters.
+
+        ``dorders`` with a non-zero order (derivative observations) raises
+        ``NotImplementedError`` until ``derivs`` is ported.
+        """
+        _no_derivatives(dorders, 'fit')
+        if self.kernel is None:
+            self.kernel_ = self._default_kernel.clone()
+        else:
+            self.kernel_ = self.kernel.clone()
+
+        X = self._points(X)
+        y = self._tensor(y)
+        self.dorders_ = None
+        if self.copy_X_train:
+            self.X_train_ = X.clone()
+            self.y_train_ = y.clone()
+        else:
+            self.X_train_ = X
+            self.y_train_ = y
+        self.basis_train_ = self._basis(self.X_train_)
+
+        self._calibrate_kernel()
+
+        y2 = self.y_train_[:, None] if self.y_train_.ndim == 1 else self.y_train_
+        with torch.no_grad():
+            state = self._fit_state(self.kernel_, self._theta(), self.X_train_,
+                                    y2, self.basis_train_)
+
+        self.corr_ = state['corr']
+        if self.decomposition == 'cholesky':
+            self.corr_L_ = self.corr_sqrt_ = state['sqrt_R']
+        else:
+            self._eigh_tuple_ = state['sqrt_R']
+            self.corr_L_ = self.corr_sqrt_ = state['corr_L']
+        self.center_ = state['center']
+        self.disp_ = state['disp']
+        self.df_ = self.compute_df(y=self.y_train_, df0=self.df0)
+        self.scale_ = state['scale']
+        self.cov_factor_ = self.cbar_sq_mean_ = state['cov_factor']
+        self._fit = True
+        return self
+
+    def _fit_state(self, kernel, theta, X, y2, basis):
+        """The fitted posterior state at ``theta``."""
+        decomposition = self.decomposition
+        R = kernel.value_fn(theta, X, None)
+        N = X.shape[0]
+        R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
+        if decomposition == 'cholesky':
+            L = _resolve_chol_fn(self.chol_engine)(R_reg)
+            sqrt_R, corr_L = L, L
+        else:
+            eig, Q = eigh_sqrt(R_reg)
+            sqrt_R = (eig, Q)
+            corr_L = Q @ torch.diag(torch.sqrt(eig))
+        center = _conj.compute_center(
+            y2, sqrt_R, basis, self.center0, self.disp0,
+            decomposition=decomposition)
+        disp = _conj.compute_disp(
+            y2, sqrt_R, basis, self.disp0, decomposition=decomposition)
+        df = _conj.compute_df(y2, self.df0)
+        scale_sq = _conj.compute_scale_sq(
+            y2, sqrt_R, basis, self.center0, self.disp0, self.df0, self.scale0,
+            decomposition=decomposition)
+        cov_factor = _conj.compute_cov_factor(scale_sq, df)
+        return {'corr': R, 'sqrt_R': sqrt_R, 'corr_L': corr_L,
+                'center': center, 'disp': disp,
+                'scale': torch.sqrt(scale_sq), 'cov_factor': cov_factor}
+
+    def underlying_properties(self, X, return_std=False, return_cov=False):
+        y_mean = self.mean(X)
+        if return_cov:
+            return y_mean, self.cov(X)
+        elif return_std:
+            return y_mean, torch.sqrt(torch.diag(self.cov(X)))
+        return y_mean
+
+    # ------------------------------------------------------------------
+    # Predict
+    # ------------------------------------------------------------------
+    def predict(self, X, return_std=False, return_cov=False, Xc=None, y=None,
+                pred_noise=False, dorders=None):
+        R"""GP-regression prediction at points X.
+
+        ``Xc`` / ``y`` override the conditioning set without affecting the
+        hyperparameter updates; before ``fit`` the prior is returned.
+        ``dorders`` with a non-zero order raises ``NotImplementedError``
+        until ``derivs`` is ported.
+        """
+        if return_std and return_cov:
+            raise RuntimeError('Only one of return_std or return_cov may be True')
+
+        X = self._points(X)
+        _no_derivatives(dorders, 'predict')
+
+        if not self._fit:
+            return self.underlying_properties(X=X, return_std=return_std,
+                                              return_cov=return_cov)
+
+        if Xc is None:
+            Xc = self.X_train_
+            sqrt_R = self._sqrt_R_train()
+            basis_old = self.basis_train_
+        else:
+            Xc = self._points(Xc)
+            kk = self.kernel_(Xc) + self.nugget * torch.eye(
+                Xc.shape[0], dtype=Xc.dtype, device=Xc.device)
+            if self.decomposition == 'cholesky':
+                sqrt_R = _resolve_chol_fn(self.chol_engine)(kk)
+            elif self.decomposition == 'eig':
+                sqrt_R = eigh_sqrt(kk)
+            else:
+                raise ValueError('decomposition must be "cholesky" or "eig"')
+            basis_old = self._basis(Xc)
+        y = self.y_train_ if y is None else self._tensor(y)
+        y2 = y[:, None] if y.ndim == 1 else y
+        var = self.compute_cov_factor(scale_sq=self.scale_ ** 2, df=self.df_)
+        with torch.no_grad():
+            return self._predict_core(
+                self._theta(), Xc, X, y2, sqrt_R, self.center_, var,
+                basis_old, self._basis(X), return_std, return_cov, pred_noise,
+                *self._fused_extra())
+
+    # subclasses whose prediction adds terms set this: the Student-t
+    # process ('tp') adds the mean-uncertainty term
+    _fused_kind = 'gp'
+
+    def _fused_extra(self):
+        """Extra arguments of :meth:`_predict_core` (the Student-t process
+        passes its posterior dispersion)."""
+        return ()
+
+    def _predict_core(self, theta, Xc, X, y2, sqrt_R, center, var, basis_old,
+                      basis_new, return_std, return_cov, pred_noise, *extra):
+        """The prediction, conditioned on (Xc, y2) with the factor sqrt_R."""
+        kind = type(self)._fused_kind
+        decomp = self.decomposition
+        kernel = self.kernel_
+        m_old = basis_old @ center
+        m_new = basis_new @ center
+        R_on = kernel.value_fn(theta, Xc, X)
+        R_no = R_on.mT
+        alpha = solve_sqrt(sqrt_R, y2 - m_old[:, None], decomposition=decomp)
+        m_pred = torch.squeeze(m_new[:, None] + R_no @ alpha)
+        if kind == 'tp':
+            # Student-t mean uncertainty: conditional basis
+            # B_c = B_new − R_no R_oo⁻¹ B_old
+            (disp,) = extra
+            basis_cond = basis_new - R_no @ solve_sqrt(
+                sqrt_R, basis_old, decomposition=decomp)
+            mean_cov = var * (basis_cond @ disp @ basis_cond.mT)
+        if not (return_std or return_cov):
+            return m_pred
+        R_nn = kernel.value_fn(theta, X, None)
+        R_pred = R_nn - R_no @ solve_sqrt(sqrt_R, R_on, decomposition=decomp)
+        if pred_noise:
+            R_pred = R_pred + self.nugget * torch.eye(
+                X.shape[0], dtype=R_pred.dtype, device=R_pred.device)
+        K_pred = torch.squeeze(var * R_pred)
+        if return_std:
+            # interpolation pins the variance to exactly zero; clamp the
+            # round-off-negative diagonal before the square root
+            std = torch.sqrt(torch.clamp(torch.diag(K_pred), min=0.0))
+            if kind == 'tp':
+                # standard deviations add, not variances
+                std = std + torch.sqrt(torch.clamp(torch.diag(mean_cov),
+                                                   min=0.0))
+            return m_pred, std
+        if kind == 'tp':
+            K_pred = K_pred + torch.squeeze(mean_cov)
+        return m_pred, K_pred
+
+    def sample_y(self, X, n_samples=1, random_state=0, underlying=False):
+        """Draws samples from the (predictive or underlying) process at X.
+
+        Draws use a ``torch.Generator`` on the model's device seeded with
+        ``random_state`` (an int; None draws a fresh seed; a generator is
+        used as given) and a jittered Cholesky factor, so they differ from
+        the JAX package's at equal seeds; the distribution is the same.
+        """
+        if isinstance(random_state, torch.Generator):
+            gen = random_state
+        else:
+            gen = torch.Generator(device=self.device)
+            if random_state is None:
+                gen.seed()
+            else:
+                gen.manual_seed(int(random_state))
+        if underlying:
+            y_mean, y_cov = self.underlying_properties(X=X, return_cov=True)
+        else:
+            y_mean, y_cov = self.predict(X, return_cov=True)
+
+        y_cov = torch.atleast_2d(y_cov)
+        N = y_cov.shape[0]
+        L = cholesky(y_cov + 1e-12 * torch.eye(N, dtype=y_cov.dtype,
+                                               device=y_cov.device))
+
+        def draw():
+            return torch.randn((n_samples, N), generator=gen,
+                               dtype=y_cov.dtype, device=y_cov.device)
+
+        if y_mean.ndim == 1:
+            return (y_mean + draw() @ L.mT).mT
+        return torch.stack([(y_mean[:, i] + draw() @ L.mT).mT
+                            for i in range(y_mean.shape[1])], dim=1)
+
+
+def _blocked_chol(R):
+    """Cholesky through ``ops.batched_blocked_cholesky`` (GEMM-dominated
+    blocks; differentiable)."""
+    if R.ndim == 2:
+        return batched_blocked_cholesky(R[None])[0]
+    return batched_blocked_cholesky(R)
+
+
+def _auto_chol(R):
+    """Batch-, size- and dtype-routed Cholesky.
+
+    The blocked engine wins on batches: on an NVIDIA H100 (700 W) the
+    blocked pipeline took 22.1 ms against 47.9 ms for ``torch.linalg`` at
+    B=16, N=4096, f32 (PERF.md §6, from ``chip_smoke.py``).  So a batch
+    (B ≥ 2) of large (N > 512) f32 matrices on a CUDA device goes to the
+    blocked engine; a single matrix (the models' one matrix per lml) and
+    every f64 matrix go to ``torch.linalg.cholesky_ex`` (cuSOLVER).
+    """
+    if (R.ndim >= 3 and R.shape[0] >= 2 and R.shape[-1] > 512
+            and R.dtype == torch.float32 and R.device.type == 'cuda'):
+        return _blocked_chol(R)
+    return cholesky(R)
+
+
+_CHOL_ENGINES = {'auto': _auto_chol, 'xla': cholesky, 'blocked': _blocked_chol}
+
+
+def _resolve_chol_fn(engine):
+    """Maps a ``chol_engine`` name ('auto' | 'xla' | 'blocked') to the
+    Cholesky function of the lml, fit and predict."""
+    try:
+        return _CHOL_ENGINES[engine]
+    except KeyError:
+        raise ValueError('chol_engine must be one of %s, got %r'
+                         % (sorted(_CHOL_ENGINES), engine))
+
+
+def _safe_sqrt_R(R_reg, decomposition, chol_fn=None):
+    """Factors R with a success flag; re-factors a sanitized matrix so
+    that gradients stay finite where the factorization fails."""
+    eye = torch.eye(R_reg.shape[0], dtype=R_reg.dtype, device=R_reg.device)
+    if chol_fn is None:
+        chol_fn = cholesky
+    if decomposition == 'cholesky':
+        L0 = chol_fn(R_reg)
+        ok = torch.all(torch.isfinite(torch.diagonal(L0, dim1=-2, dim2=-1)),
+                       dim=-1)
+        R_safe = torch.where(ok, R_reg, eye)
+        L = chol_fn(R_safe)
+        return L, ok
+    elif decomposition == 'eig':
+        eig, Q = eigh_sqrt(R_reg)
+        ok = torch.all(eig > 0)
+        eig = torch.where(ok, eig, torch.ones_like(eig))
+        return (eig, Q), ok
+    raise ValueError('decomposition must be "cholesky" or "eig"')
+
+
+class ConjugateGaussianProcess(BaseConjugateProcess):
+    R"""Conjugacy-based Gaussian process.
+
+    The log-marginal likelihood folds the conjugacy-updated mean and
+    variance into the standard GP marginal likelihood (an extension of
+    GPML Algorithm 2.1).
+    """
+
+    def _lml(self, kernel, theta, X, y, basis):
+        decomposition = self.decomposition
+        center0, disp0 = self.center0, self.disp0
+        df0, scale0 = self.df0, self.scale0
+        N = X.shape[0]
+        R = kernel.value_fn(theta, X, None)
+        R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
+        sqrt_R, ok = _safe_sqrt_R(R_reg, decomposition,
+                                  _resolve_chol_fn(self.chol_engine))
+
+        df = _conj.compute_df(y=y, df0=df0)
+        center = _conj.compute_center(y, sqrt_R, basis, center0=center0,
+                                      disp0=disp0, decomposition=decomposition)
+        scale2 = _conj.compute_scale_sq(
+            y=y, sqrt_R=sqrt_R, basis=basis, center0=center0, disp0=disp0,
+            df0=df0, scale0=scale0, decomposition=decomposition)
+        mean = basis @ center
+        var = _conj.compute_cov_factor(scale_sq=scale2, df=df)
+
+        logdet_R = logdet_sqrt(sqrt_R, decomposition)
+        logdet_K = N * torch.log(var) + logdet_R
+
+        y_train = y - mean[:, None]
+        # alpha = K^{-1} y_train = R^{-1} y_train / var
+        alpha = solve_sqrt(sqrt_R, y_train, decomposition=decomposition) / var
+
+        log_likelihood_dims = -0.5 * torch.einsum('ik,ik->k', y_train, alpha)
+        log_likelihood_dims = log_likelihood_dims - 0.5 * logdet_K
+        log_likelihood_dims = log_likelihood_dims - N / 2 * _LOG_2PI
+        log_likelihood = log_likelihood_dims.sum(-1)
+        return torch.where(ok, log_likelihood, -torch.inf)
+
+    def likelihood(self, log=True, X=None, y=None, theta=None):
+        """Marginal likelihood of the data at theta."""
+        log_like = self.log_marginal_likelihood(theta=theta, X=X, y=y)
+        if log:
+            return log_like
+        return torch.exp(torch.as_tensor(log_like))

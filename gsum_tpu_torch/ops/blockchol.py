@@ -1,5 +1,5 @@
 R"""Blocked batched Cholesky for large N (counterpart of
-``gsum_tpu/ops/blockchol.py``, forward path).
+``gsum_tpu/ops/blockchol.py``).
 
 The left-looking column-block factorization puts nearly all of the N³/3
 FLOPs into batched GEMMs:
@@ -13,19 +13,27 @@ FLOPs into batched GEMMs:
 - the logpdf's forward substitution reuses the same inverses, N/block
   sequential GEMM steps instead of N.
 
+Two functions are differentiable, each a ``torch.autograd.Function`` with
+the JAX package's hand-written backward (its ``custom_vjp``):
+:func:`batched_blocked_cholesky` (the Murray adjoint as two blocked
+upper-triangular solves) and :func:`blocked_spd_solve_logdet` (the
+differentiable lml core: four GEMM passes that reuse the forward's
+diagonal-block inverses, so its backward launches no diagonal kernel).
+
 GEMMs run in full f32 (the port needs
 ``torch.backends.cuda.matmul.allow_tf32 == False``, PyTorch's default).
-Not ported yet: the custom-VJP ``batched_blocked_cholesky`` and
-``blocked_spd_solve_logdet``, ``_factor_diag_hier``,
-``blocked_tri_inv_diag`` and ``blocked_solve_lower`` (ROADMAP.md queue A).
+Not ported yet: ``_factor_diag_hier``, ``blocked_tri_inv_diag``,
+``blocked_solve_lower`` and the TF32 opt-in (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import torch
 
-from .chol_inv import MAX_NB, _cholesky_nan, chol_inv_block, chol_inv_block_plain
+from .chol_inv import (MAX_NB, _cholesky_nan, _tri_inv, chol_inv_block,
+                       chol_inv_block_plain)
 
-__all__ = ['blocked_chol_solve_logdet', 'blocked_factor', 'blocked_cho_solve']
+__all__ = ['batched_blocked_cholesky', 'blocked_chol_solve_logdet',
+           'blocked_factor', 'blocked_cho_solve', 'blocked_spd_solve_logdet']
 
 
 def _diag_engine(K, block, diag):
@@ -187,3 +195,145 @@ def blocked_cho_solve(L, minvs, Y):
     Yp = _pad_rows(Y, pad)
     x = _blocked_upperT_solve(Lp, minvs, _blocked_lower_solve(Lp, minvs, Yp))
     return x[..., :N, :] if pad else x
+
+
+def _blocked_cholesky_raw(K, block, diag):
+    N = K.shape[-1]
+    if N <= block:
+        return _cholesky_nan(K)
+    Kp, pad = _pad_spd(K, block)
+    L, _ = _blocked_factor(Kp, block, _diag_engine(K, block, diag))
+    return L[..., :N, :N] if pad else L
+
+
+class _BlockedCholesky(torch.autograd.Function):
+    """L = chol(K) with the analytic Cholesky adjoint (Murray 2016):
+    ``K̄ = ½ sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹)``, the sandwich run as two blocked
+    upper-triangular solves with N right-hand sides."""
+
+    @staticmethod
+    def forward(ctx, K, block, diag):
+        L = _blocked_cholesky_raw(K, block, diag)
+        ctx.block = block
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, Lbar):
+        (L,) = ctx.saved_tensors
+        block = ctx.block
+        n = L.shape[-1]
+        W = L.mT @ Lbar
+        W = torch.tril(W) - 0.5 * W * torch.eye(n, dtype=L.dtype,
+                                                device=L.device)
+        if n <= block:
+            M = _tri_inv(L)
+            Abar = M.mT @ (W @ M)
+        else:
+            # the identity extension keeps Lp triangular; the diagonal
+            # blocks are triangular, so their inverses are triangular
+            # solves, not the SPD diagonal kernel
+            Lp, pad = _pad_spd(L, block)
+            if pad:
+                W = torch.nn.functional.pad(W, (0, pad, 0, pad))
+            minvs = [_tri_inv(Lp[..., s:s + block, s:s + block])
+                     for s in range(0, Lp.shape[-1], block)]
+            # T = W L⁻¹ via Tᵀ = L⁻ᵀ Wᵀ;  then  K̄ = L⁻ᵀ T
+            Tt = _blocked_upperT_solve(Lp, minvs, W.mT)
+            Abar = _blocked_upperT_solve(Lp, minvs, Tt.mT)
+            if pad:
+                Abar = Abar[..., :n, :n]
+        return 0.5 * (Abar + Abar.mT), None, None
+
+
+def batched_blocked_cholesky(K, block=256, leaf=32, precision=None,
+                             diag='auto'):
+    R"""Cholesky of (..., N, N) SPD matrices with GEMM-dominated blocking,
+    differentiable.
+
+    Parameters
+    ----------
+    K : (..., N, N) SPD matrices (batch dims lead)
+    block : column-block width; N ≤ block factors K in one piece
+    leaf, precision : accepted for the JAX signature and ignored (the
+        port's diagonal engines need no leaf size, and its GEMMs run in
+        full precision)
+    diag : 'auto' | 'kernel' | 'recursive' — diagonal-block engine of the
+        forward ('auto': the CUDA kernel for f32 3-D input)
+
+    The same factor as ``torch.linalg.cholesky`` to round-off; a matrix
+    whose factorization fails gives a non-finite or non-positive diagonal.
+    The backward launches no diagonal kernel.
+    """
+    return _BlockedCholesky.apply(K, block, diag)
+
+
+class _BlockedSpdSolveLogdet(torch.autograd.Function):
+    """``(K⁻¹Y, log|K|, ok)`` with the four-GEMM backward:
+
+        M = L⁻¹            (one blocked N-RHS forward substitution)
+        Ȳ = K⁻¹ X̄ = Mᵀ(M X̄)
+        K̄ = l̄·MᵀM − Ȳ Xᵀ   (zeroed where ``ok`` is False)
+    """
+
+    @staticmethod
+    def forward(ctx, K, Y, block, diag):
+        N = K.shape[-1]
+        Kp, pad = _pad_spd(K, block)
+        L, minvs = _blocked_factor(Kp, block, _diag_engine(K, block, diag))
+        d = torch.diagonal(L, dim1=-2, dim2=-1)[..., :N]
+        ok = torch.all(torch.isfinite(d) & (d > 0), dim=-1)
+        x = _blocked_upperT_solve(
+            L, minvs, _blocked_lower_solve(L, minvs, _pad_rows(Y, pad)))
+        if pad:
+            x = x[..., :N, :]
+        logdet = 2.0 * torch.sum(torch.log(d), dim=-1)
+        ctx.mark_non_differentiable(ok)
+        ctx.save_for_backward(x, ok, L, *minvs)
+        return x, logdet, ok
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, xbar, lbar, _):
+        x, ok, L, *minvs = ctx.saved_tensors
+        N = x.shape[-2]
+        pad = L.shape[-1] - N
+        # the padded tail of L is an identity block and inverts to itself
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        M = _blocked_lower_solve(L, minvs, eye.expand_as(L))
+        Mt = M.mT
+        ybar = Mt @ (M @ _pad_rows(xbar, pad))               # K⁻¹ X̄
+        kbar = lbar[..., None, None] * (Mt @ M) \
+            - ybar @ _pad_rows(x, pad).mT
+        if pad:
+            kbar = kbar[..., :N, :N]
+            ybar = ybar[..., :N, :]
+        # a failed factorization carries NaN through L and M: its gradients
+        # are zeroed, not propagated as 0·NaN
+        okc = ok[..., None, None]
+        return (torch.where(okc, kbar, 0.0), torch.where(okc, ybar, 0.0),
+                None, None)
+
+
+def blocked_spd_solve_logdet(K, Y, block=128, leaf=32, precision=None,
+                             diag='auto'):
+    R"""``(K⁻¹Y, log|K|, ok)`` for batched SPD K, differentiable in K and
+    Y: the large-N log-marginal-likelihood core.
+
+    A log-marginal likelihood uses the factorization only through
+    ``K⁻¹[y, basis]`` and ``log|K|``, so the backward is written at that
+    boundary: four blocked GEMM passes that reuse the forward's
+    diagonal-block inverses (no diagonal kernel runs in the backward).
+    ``ok`` (per matrix: the factor's diagonal is finite and positive) is an
+    output; callers mask ``-inf`` themselves, and the gradients of a failed
+    matrix are zero.
+
+    Parameters
+    ----------
+    K : (..., N, N) SPD;  Y : (..., N, m)
+    block : column-block width (N is padded to a multiple of it)
+    leaf, precision : accepted for the JAX signature and ignored
+    diag : 'auto' | 'kernel' | 'recursive' — diagonal-block engine
+    """
+    return _BlockedSpdSolveLogdet.apply(K, Y, block, diag)

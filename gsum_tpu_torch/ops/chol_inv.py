@@ -31,10 +31,19 @@ MAX_NB = 512  # the largest block the kernel takes
 
 def _cholesky_nan(A):
     """Lower Cholesky factor of (..., n, n) SPD A; a matrix whose
-    factorization fails comes back all NaN (as JAX's Cholesky returns it),
-    so that a finite-and-positive diagonal test flags it."""
+    factorization fails comes back NaN in its lower triangle and 0 above
+    (as JAX's Cholesky returns it), so that a finite-and-positive diagonal
+    test flags it."""
     L, info = torch.linalg.cholesky_ex(A)
-    return L.masked_fill((info != 0)[..., None, None], float('nan'))
+    lower = torch.ones(A.shape[-2:], dtype=torch.bool,
+                       device=A.device).tril()
+    return L.masked_fill((info != 0)[..., None, None] & lower, float('nan'))
+
+
+def _tri_inv(L):
+    """Inverses of (..., n, n) lower-triangular matrices."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
 def chol_inv_block_plain(A):
@@ -42,8 +51,7 @@ def chol_inv_block_plain(A):
     (..., n, n) SPD matrices, any floating dtype.  The blocked
     factorization's ``'recursive'`` engine uses it too."""
     L = _cholesky_nan(A)
-    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    return L, torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+    return L, _tri_inv(L)
 
 
 def _check(A):

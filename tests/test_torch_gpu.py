@@ -1,6 +1,9 @@
 """The CUDA kernels on the card, each against its plain PyTorch version: the
 diagonal-block factor and inverse, the single-kernel blocked Cholesky and
-the tiled RBF covariance build.  Marked ``gpu``: every test skips where there
+the tiled RBF covariance build; the differentiable blocked functions in f32
+through the diagonal kernel, their gradients against an f64
+``torch.linalg`` autograd reference; and the conjugate GP's lml and gradient
+on the card against the CPU.  Marked ``gpu``: every test skips where there
 is no CUDA card.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -10,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from gsum_tpu_torch.ops import (batched_chol_logpdf, chol_inv_block,
+import gsum_tpu_torch as gt
+from gsum_tpu_torch.ops import (batched_blocked_cholesky, batched_chol_logpdf,
+                                blocked_spd_solve_logdet, chol_inv_block,
                                 chol_inv_block_plain, fused_blocked_cholesky,
-                                fused_blocked_cholesky_plain,
+                                fused_blocked_cholesky_plain, rbf_covariance,
                                 rbf_covariance_pallas,
                                 rbf_covariance_pallas_plain)
 
@@ -209,3 +214,84 @@ def test_fused_pipeline_goes_through_one_launch(cuda):
     blocked = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='blocked')
     assert torch.isfinite(out).all()
     assert ((out - blocked).abs() / blocked.abs()).max().item() < 1e-4
+
+
+@pytest.mark.parametrize('engine', ['auto', 'blocked'])
+def test_model_lml_and_gradient_on_the_card_match_the_cpu(cuda, engine):
+    """The conjugate GP at N=200, f64: lml and its autograd gradient on the
+    card within 1e-10 (relative, the gradient by its largest entry) of the
+    same call on the CPU; with ``chol_engine='blocked'`` too."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(200, 2)
+    y = np.sin(3 * X[:, :1] + np.arange(3)) + 0.01 * rng.randn(200, 3)
+    theta = np.log([0.3, 1e-3])
+    out = []
+    for device in ('cpu', cuda):
+        gp = gt.ConjugateGaussianProcess(
+            gt.RBF(0.3, (1e-2, 10)) + gt.WhiteKernel(1e-4, (1e-8, 1e-1)),
+            df=3, chol_engine=engine, device=device)
+        lml, grad = gp.log_marginal_likelihood(theta, True, X=X, y=y)
+        assert lml.device.type == torch.device(device).type
+        out.append((lml.item(), grad.cpu()))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    assert abs(l_gpu - l_cpu) <= 1e-10 * abs(l_cpu)
+    assert (g_gpu - g_cpu).abs().max() <= 1e-10 * g_cpu.abs().max()
+
+
+def _route_grads(route, K, Y, G, g):
+    """(K̄ symmetrized, Ȳ) of ⟨x, G⟩ + ⟨logdet, g⟩ with x = K⁻¹Y through one
+    route, and the diagonal kernel's launches in the forward and the
+    backward."""
+    K = K.detach().requires_grad_(True)
+    Y = Y.detach().requires_grad_(True)
+    before = chol_inv_block.launches
+    if route == 'blocked_spd_solve_logdet':
+        x, logdet, ok = blocked_spd_solve_logdet(K, Y, block=128)
+        assert ok.all()
+    else:
+        if route == 'batched_blocked_cholesky':
+            L = batched_blocked_cholesky(K, block=256)
+        else:
+            L = torch.linalg.cholesky_ex(K).L
+        x = torch.cholesky_solve(Y, L)
+        logdet = 2 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    loss = (x * G.to(x.dtype)).sum() + (logdet * g.to(x.dtype)).sum()
+    torch.cuda.synchronize()
+    fwd = chol_inv_block.launches - before
+    Kbar, Ybar = torch.autograd.grad(loss, (K, Y))
+    torch.cuda.synchronize()
+    bwd = chol_inv_block.launches - before - fwd
+    return 0.5 * (Kbar + Kbar.mT), Ybar, fwd, bwd
+
+
+def _rel_fro(a, ref):
+    """The largest per-matrix relative Frobenius distance."""
+    d = (a.double() - ref).flatten(1).norm(dim=1)
+    return (d / ref.flatten(1).norm(dim=1)).max().item()
+
+
+@pytest.mark.parametrize('route,launches', [
+    ('blocked_spd_solve_logdet', 1024 // 128),
+    ('batched_blocked_cholesky', 1024 // 256)])
+def test_blocked_autograd_f32_through_the_kernel(cuda, route, launches):
+    """f32 at (4, 1024): the forward launches the diagonal kernel once per
+    diagonal block (block 128 and 256), the backward never; K̄ and Ȳ against
+    the f64 ``torch.linalg`` autograd reference are at most 10 times as far
+    from it as the f32 ``torch.linalg`` autograd route; the same function in
+    f64 is within 1e-9 of the reference."""
+    rng = np.random.RandomState(0)
+    X = torch.tensor(rng.rand(4, 1024, 2), dtype=torch.float32, device=cuda)
+    Y = torch.tensor(rng.randn(4, 1024, 3), dtype=torch.float32, device=cuda)
+    G = torch.tensor(rng.randn(4, 1024, 3), device=cuda)
+    g = torch.tensor(rng.randn(4), device=cuda)
+    K = rbf_covariance(X, 0.25, 1.0, 1e-2)
+    ref = _route_grads('torch.linalg', K.double(), Y.double(), G, g)
+    f32 = _route_grads('torch.linalg', K, Y, G, g)
+    got = _route_grads(route, K, Y, G, g)
+    assert got[2:] == (launches, 0)
+    for a, b, r in zip(got[:2], f32[:2], ref[:2]):
+        assert _rel_fro(a, r) <= 10 * _rel_fro(b, r)
+    got64 = _route_grads(route, K.double(), Y.double(), G, g)
+    assert got64[2:] == (0, 0)
+    for a, r in zip(got64[:2], ref[:2]):
+        assert _rel_fro(a, r) <= 1e-9
