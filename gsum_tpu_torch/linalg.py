@@ -232,14 +232,24 @@ def pivoted_cholesky(M, return_pivots=False):
     return G
 
 
+def _T(a):
+    """JAX's ``.T`` of a vector or a matrix of row vectors: a 1-D vector is
+    its own transpose (torch's ``.mT`` refuses it)."""
+    return a.mT if a.ndim >= 2 else a
+
+
 def cholesky_errors(y, mean, chol):
-    R"""Whitened residuals ``L^{-1}(y - mean)`` (row vectors in and out)."""
-    return torch.linalg.solve_triangular(chol, (y - mean).mT, upper=False).mT
+    R"""Whitened residuals ``L^{-1}(y - mean)`` (row vectors in and out; a
+    1-D ``y`` gives one whitened vector)."""
+    r = _T(y - mean)
+    if r.ndim == 1:
+        return torch.linalg.solve_triangular(chol, r[:, None], upper=False)[:, 0]
+    return _T(torch.linalg.solve_triangular(chol, r, upper=False))
 
 
 def mahalanobis(y, mean, chol=None, inv=None, sqrt_mat=None):
     R"""Mahalanobis distance via a Cholesky factor, inverse, or general
-    square root."""
+    square root; one distance per row of ``y``, a scalar for a 1-D ``y``."""
     given = sum(x is not None for x in (chol, inv, sqrt_mat))
     if given > 1:
         raise ValueError('Only one of chol, inv, or sqrt_mat can be given')
@@ -247,7 +257,7 @@ def mahalanobis(y, mean, chol=None, inv=None, sqrt_mat=None):
         err = cholesky_errors(y, mean, chol)
         return torch.linalg.norm(err, dim=-1)
     if sqrt_mat is not None:
-        err = general_solve(sqrt_mat, (y - mean).mT).mT
+        err = _T(general_solve(sqrt_mat, _T(y - mean)))
         return torch.linalg.norm(err, dim=-1)
     diff = torch.atleast_2d(y) - mean
     return torch.squeeze(torch.sqrt(torch.einsum('ij,jk,ik->i', diff, inv, diff)))

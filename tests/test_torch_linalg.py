@@ -106,6 +106,20 @@ LINALG_CASES = {
     'mahalanobis sqrt_mat': (lambda y, m, s: jla.mahalanobis(y, m, sqrt_mat=s),
                              lambda y, m, s: tla.mahalanobis(y, m, sqrt_mat=s),
                              (yrows, mean6, S)),
+    # a 1-D y: JAX's .T is a no-op there, so one whitened vector and a
+    # scalar distance (the diagnostics pass mean vectors)
+    'cholesky_errors 1-D': (jla.cholesky_errors, tla.cholesky_errors,
+                            (yrows[0], mean6, L)),
+    'mahalanobis chol 1-D': (lambda y, m, l: jla.mahalanobis(y, m, chol=l),
+                             lambda y, m, l: tla.mahalanobis(y, m, chol=l),
+                             (yrows[0], mean6, L)),
+    'mahalanobis inv 1-D': (lambda y, m, i: jla.mahalanobis(y, m, inv=i),
+                            lambda y, m, i: tla.mahalanobis(y, m, inv=i),
+                            (yrows[0], mean6, np.linalg.inv(M))),
+    'mahalanobis sqrt_mat 1-D': (
+        lambda y, m, s: jla.mahalanobis(y, m, sqrt_mat=s),
+        lambda y, m, s: tla.mahalanobis(y, m, sqrt_mat=s),
+        (yrows[0], mean6, S)),
 }
 
 
