@@ -14,7 +14,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      call, K exactly symmetric;
    - ``fused_blocked_cholesky`` (K3) and an f64 factor at (2, 1024) and
      (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
-4. drives the five paths once each, with every kernel's launch count set
+4. drives the six paths once each, with every kernel's launch count set
    to 0 just before and read just after:
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
@@ -34,6 +34,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      ``ops.batched_blocked_cholesky`` (block 256), the diagonal kernel in
      their forwards only, their gradients against an f64 ``torch.linalg``
      autograd reference beside the f32 ``torch.linalg`` route's;
+   - the truncation models in f64 at the single model's width
+     (``models.TruncationGP`` and ``TruncationTP`` on the partial sums
+     ``helpers.partials`` makes of its 5 curves, ratio 0.5, ref 10): fit,
+     ``predict`` of each kind with std and with cov at order 3, the lml +
+     gradient at the start θ and at ``ratio=0.45``, and the band constrained
+     to 0 on the edge x₀ = 1; held against the single model (coefficients,
+     θ, lml less the change of variables) and against the same calls on the
+     CPU, with the jitter ladder's rung on each device and the
+     interpolant's limit derived from its condition number;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -47,7 +56,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    time by kernel and the device's idle share;
 7. times the single model's fit, lml + gradient and predict, and the
    blocked autograd routes' forward + backward, and profiles one lml +
-   gradient and one forward + backward of ``blocked_spd_solve_logdet``.
+   gradient and one forward + backward of ``blocked_spd_solve_logdet``;
+8. times the truncation models' second fit, lml + gradient and each
+   ``predict`` kind, and prints the script's wall time.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -72,6 +83,10 @@ REL_TOL = 1e-3                       # f32 pipeline vs f64, and vs plain diag
 GP_N, GP_D, GP_CURVES, GP_NEW = 4096, 2, 5, 512   # the single-model path
 GP_TOL, GP_GRAD_TOL = 1e-9, 1e-7     # card vs CPU, f64
 FLAGSHIP_THETA = (0.01, 0.1)         # its constant and length scale
+TRUNC_RATIO, TRUNC_REF, TRUNC_ORDER = 0.5, 10, 3   # the truncation path
+TRUNC_EDGE = 16                      # constraint points on the edge x₀ = 1
+TRUNC_RATIO_KW = 0.45                # the lml's ratio keyword
+JITTERS = (0.0, 1e-12, 1e-9, 1e-6)   # linalg.robust_cholesky's ladder
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
 KERNELS = {
@@ -312,7 +327,10 @@ def rel_err(a, ref):
     """max |a − ref| / max |ref|: the error against the result's own scale
     (element-wise ratios blow up where a curve crosses zero)."""
     a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
-    return ((a - ref).abs().max() / ref.abs().max()).item()
+    scale = ref.abs().max()
+    # an all-zero result (the unconstrained truncation mean at center 0)
+    # is held absolutely
+    return ((a - ref).abs().max() / (scale if scale > 0 else 1)).item()
 
 
 def gp_data():
@@ -324,6 +342,22 @@ def gp_data():
                   for k in range(GP_CURVES)], axis=1) \
         + 0.01 * rng.randn(GP_N, GP_CURVES)
     return X, y, rng.rand(GP_NEW, GP_D)
+
+
+def counted_lbfgsb(evaluations):
+    """The models' optimizer, scipy_lbfgsb, with its evaluations appended to
+    ``evaluations``; an abnormal end (warnflag ≠ 0, a ConvergenceWarning)
+    raises."""
+    from gsum_tpu_torch.optimize import ConvergenceWarning, scipy_lbfgsb
+
+    def optimizer(obj_func, theta0, bounds):
+        def counted(theta):
+            evaluations.append(theta)
+            return obj_func(theta)
+        with warnings.catch_warnings():
+            warnings.simplefilter('error', ConvergenceWarning)
+            return scipy_lbfgsb(counted, theta0, bounds)
+    return optimizer
 
 
 def gp_model(device, **kw):
@@ -341,22 +375,10 @@ def single_model_path(card):
     fitted θ) and against ``chol_engine='blocked'``; then the flagship step
     at N=4096 against its CPU run.  Returns the launch counts."""
     from gsum_tpu_torch.entry import flagship_step
-    from gsum_tpu_torch.optimize import ConvergenceWarning, scipy_lbfgsb
 
     X, y, Xnew = gp_data()
     evaluations = []
-
-    def optimizer(obj_func, theta0, bounds):
-        """scipy_lbfgsb with its evaluations counted; an abnormal end
-        (warnflag ≠ 0, a ConvergenceWarning) raises."""
-        def counted(theta):
-            evaluations.append(theta)
-            return obj_func(theta)
-        with warnings.catch_warnings():
-            warnings.simplefilter('error', ConvergenceWarning)
-            return scipy_lbfgsb(counted, theta0, bounds)
-
-    gp = gp_model('cuda', optimizer=optimizer)
+    gp = gp_model('cuda', optimizer=counted_lbfgsb(evaluations))
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -564,6 +586,263 @@ def blocked_autograd_path(X, y, card):
     return launches
 
 
+TRUNC_PRIORS = {'TruncationGP': dict(center=0, disp=0, df=3, scale=1),
+                'TruncationTP': dict(center=0, disp=1, df=5, scale=1)}
+KINDS = ('both', 'interp', 'trunc')
+
+
+def trunc_model(name, device, kernel=None, **kw):
+    """Path 5's TruncationGP or TruncationTP on ``device``: path 3's kernel
+    (or ``kernel``), ratio 0.5, ref 10."""
+    import gsum_tpu_torch as gt
+
+    if kernel is None:
+        kernel = gt.RBF(0.3, (1e-2, 10)) + gt.WhiteKernel(1e-4, (1e-8, 1e-1))
+    return getattr(gt, name)(kernel, ratio=TRUNC_RATIO, ref=TRUNC_REF,
+                             device=device, **TRUNC_PRIORS[name], **kw)
+
+
+def trunc_data(device):
+    """Path 5's data: path 3's X, its curves as the coefficients c₀…c₄ and
+    their partial sums y (``helpers.partials``, ratio 0.5, ref 10), the 512
+    new points and 16 constraint points on the edge x₀ = 1."""
+    from gsum_tpu_torch.helpers import partials
+
+    X, c, Xnew = gp_data()
+    c = torch.tensor(c, device=device)
+    y = partials(c, ratio=TRUNC_RATIO, ref=TRUNC_REF)
+    dX = np.stack([np.ones(TRUNC_EDGE), np.linspace(0, 1, TRUNC_EDGE)], 1)
+    return X, c, y, Xnew, dX
+
+
+def ladder(M):
+    """robust_cholesky's choice for M, recomputed (the function returns only
+    ``(L, ok)``): the index of the first rung of the jitter ladder that
+    factors M, and the jitter added there (the rung's times max diag M)."""
+    s = torch.diagonal(M).max().item()
+    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+    rung = next((i for i, j in enumerate(JITTERS)
+                 if torch.linalg.cholesky_ex(M + (j * s) * eye).info.item()
+                 == 0), len(JITTERS))
+    return rung, JITTERS[min(rung, len(JITTERS) - 1)] * s
+
+
+def jittered_cond(M, jitter):
+    """The condition number of M + jitter·I, (λmax + j) / (max(λmin, 0) + j)."""
+    ev = torch.linalg.eigvalsh(M)
+    return (ev[-1].item() + jitter) / (max(ev[0].item(), 0.0) + jitter)
+
+
+def cond_tol(cond):
+    """Card-vs-CPU limit of a result that goes through a solve with a matrix
+    of condition number ``cond``: cond·ε, the first-order bound on the
+    relative error of a backward-stable solve (at least GP_TOL)."""
+    return max(GP_TOL, cond * torch.finfo(torch.float64).eps)
+
+
+def truncation_path(gp, card, device='cuda'):
+    """Path 5: TruncationGP and TruncationTP at path 3's width (N=4096, d=2,
+    5 orders, f64) on the card: fit, the three predict kinds with std and
+    with cov, the lml + gradient at the start θ and at another ratio, and
+    the band constrained to 0 on the edge x₀ = 1; checked against path 3's
+    model (``gp``) and against the same calls of the port on the CPU.
+    Returns the fitted models."""
+    t_path = time.perf_counter()
+    X, c, y, Xnew, dX = trunc_data(device)
+    orders = np.arange(GP_CURVES)
+    Xcon = np.concatenate([Xnew, dX])       # the constraint points last
+    evaluations = {}
+    events = {}
+
+    def run():
+        out = {}
+        for name in TRUNC_PRIORS:
+            evaluations[name] = []
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trunc_model(name, device,
+                            optimizer=counted_lbfgsb(evaluations[name]))
+            m.fit(X, y, orders=orders)
+            stop.record()
+            events[name] = (start, stop)
+            out[name] = m
+            for kind in KINDS:
+                for ret in ('std', 'cov'):
+                    out[name, kind, ret] = m.predict(
+                        Xnew, order=TRUNC_ORDER, kind=kind,
+                        **{'return_' + ret: True})
+            theta0 = m.coeffs_process.kernel.theta
+            out[name, 'lml0'] = m.log_marginal_likelihood(theta0, True)
+            out[name, 'lml_kw'] = m.log_marginal_likelihood(
+                theta0, True, ratio=TRUNC_RATIO_KW)
+            mc = trunc_model(name, device,
+                             kernel=m.coeffs_process.kernel_.clone(),
+                             optimizer=None)
+            mc.fit(X, y, orders=orders, dX=dX, dy=0)
+            out[name, 'con'] = mc
+            for kind in ('trunc', 'both'):
+                out[name, kind, 'con'] = mc.predict(
+                    Xcon, order=TRUNC_ORDER, kind=kind, return_std=True)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = drive(run)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in TRUNC_PRIORS:
+        m = out[name]
+        start, stop = events[name]
+        print(f'main path (truncation): {name} N={GP_N} d={GP_D} orders='
+              f'{GP_CURVES} f64: first fit {start.elapsed_time(stop):.1f} ms '
+              f'over {len(evaluations[name])} evaluations, θ = '
+              f'{m.coeffs_process.kernel_.theta.tolist()}, lml '
+              f'{m.coeffs_process.log_marginal_likelihood_value_:.10g}')
+    print(f'main path (truncation): launches {counts}, peak memory '
+          f'{peak_gib:.2f} GiB')
+    if any(counts.values()):
+        raise AssertionError(f'the f64 truncation models launched a kernel: '
+                             f'{counts}')
+
+    # consistency of the port with itself, on the card
+    tgp = out['TruncationGP']
+    theta = tgp.coeffs_process.kernel_.theta
+    change = GP_N * (GP_CURVES * math.log(TRUNC_REF)
+                     + orders.sum() * math.log(TRUNC_RATIO))
+    lml = tgp.log_marginal_likelihood(theta)
+    lml3 = gp.log_marginal_likelihood(theta)
+    lml_kw = tgp.log_marginal_likelihood(theta, ratio=TRUNC_RATIO_KW)
+    own = {'coeffs_ vs c': rel_err(tgp.coeffs_, c),
+           "θ vs path 3's (abs)": float(np.abs(theta - gp.kernel_.theta).max()),
+           "lml vs path 3's lml − N(5 log ref + 10 log ratio)":
+           abs(lml.item() - (lml3.item() - change)) / abs(lml.item())}
+    print('main path (truncation): TruncationGP against path 3: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in own.items())
+          + f' (limits 1e-12, 1e-5, {GP_TOL:g}); lml at ratio '
+          f'{TRUNC_RATIO_KW} {lml_kw.item():.10g}, at {TRUNC_RATIO} '
+          f'{lml.item():.10g}')
+    if not (own['coeffs_ vs c'] <= 1e-12
+            and own["θ vs path 3's (abs)"] <= 1e-5
+            and own["lml vs path 3's lml − N(5 log ref + 10 log ratio)"]
+            <= GP_TOL
+            and math.isfinite(lml_kw.item()) and lml_kw.item() != lml.item()):
+        raise AssertionError('the truncation GP disagrees with path 3')
+    for key, val in out.items():
+        if isinstance(key, tuple) and key[1] in KINDS:
+            shapes = [tuple(v.shape) for v in val]
+            n = len(Xcon) if key[2] == 'con' else GP_NEW
+            want = [(n,), (n,) if key[2] != 'cov' else (n, n)]
+            if shapes != want or not all(torch.isfinite(v).all()
+                                         for v in val):
+                raise AssertionError(f'bad prediction {key}: {shapes}')
+
+    # card against CPU, at the card's fitted kernels
+    errs, limits, rungs = {}, {}, {}
+    for name in TRUNC_PRIORS:
+        m = out[name]
+        kernel = m.coeffs_process.kernel_.clone()
+        cpu = trunc_model(name, 'cpu', kernel=kernel, optimizer=None)
+        cpu.fit(X, y.cpu(), orders=orders)
+        theta0 = m.coeffs_process.kernel.theta
+        for key, kw in (('lml0', {}), ('lml_kw', {'ratio': TRUNC_RATIO_KW})):
+            lml_c, grad_c = cpu.log_marginal_likelihood(theta0, True, **kw)
+            lml_g, grad_g = out[name, key]
+            where = 'start θ' + (f', ratio {TRUNC_RATIO_KW}' if kw else '')
+            errs[name, f'lml ({where})'] = rel_err(lml_g, lml_c)
+            limits[name, f'lml ({where})'] = GP_TOL
+            errs[name, f'gradient ({where})'] = rel_err(grad_g, grad_c)
+            limits[name, f'gradient ({where})'] = GP_GRAD_TOL
+        K_g = m.cov(X, X, start=0, end=TRUNC_ORDER)
+        rung_g, jitter = ladder(K_g)
+        cond = jittered_cond(K_g, jitter)
+        del K_g
+        rung_c = ladder(cpu.cov(X, X, start=0, end=TRUNC_ORDER))[0]
+        rungs[name] = (rung_g, rung_c, cond)
+        for kind in KINDS:
+            for ret in ('std', 'cov'):
+                want = cpu.predict(Xnew, order=TRUNC_ORDER, kind=kind,
+                                   **{'return_' + ret: True})
+                tol = GP_TOL if kind == 'trunc' else cond_tol(cond)
+                for label, g, w in zip(('mean', ret), out[name, kind, ret],
+                                       want):
+                    if ret == 'cov' and label == 'mean':
+                        continue          # the same mean as with std
+                    errs[name, f'{kind} {label}'] = rel_err(g, w)
+                    limits[name, f'{kind} {label}'] = tol
+        mc = out[name, 'con']
+        cpu.fit(X, y.cpu(), orders=orders, dX=dX, dy=0)
+        K_t = mc.cov(dX, dX, start=TRUNC_ORDER + 1)
+        rung_t, j_t = ladder(K_t)
+        cond_t = jittered_cond(K_t, j_t)
+        rung_tc = ladder(cpu.cov(dX, dX, start=TRUNC_ORDER + 1))[0]
+        rungs[name, 'constraint'] = (rung_t, rung_tc, cond_t)
+        for kind in ('trunc', 'both'):
+            want = cpu.predict(Xcon, order=TRUNC_ORDER, kind=kind,
+                               return_std=True)
+            tol = cond_tol(max(cond_t, cond) if kind == 'both' else cond_t)
+            for label, g, w in zip(('mean', 'std'), out[name, kind, 'con'],
+                                   want):
+                errs[name, f'constrained {kind} {label}'] = rel_err(g, w)
+                limits[name, f'constrained {kind} {label}'] = tol
+        # at the constraint points the band's variance is pinned to the
+        # jitter the ladder added: std ≤ √(j + cond_t·ε·max diag)
+        std_at = out[name, 'trunc', 'con'][1][-TRUNC_EDGE:].max().item()
+        s_t = torch.diagonal(K_t).max().item()
+        pin = math.sqrt(j_t + cond_tol(cond_t) * s_t)
+        print(f'main path (truncation): {name} constrained band: max std at '
+              f'the {TRUNC_EDGE} constraint points {std_at:.3e} (limit '
+              f'{pin:.3e}), max std elsewhere '
+              f'{out[name, "trunc", "con"][1][:-TRUNC_EDGE].max().item():.3e}')
+        if not std_at <= pin:
+            raise AssertionError(f'{name}: the constrained band is not pinned')
+        del cpu
+    for name, (rg, rc, cond) in rungs.items():
+        print(f'main path (truncation): {name} jitter ladder: card rung {rg} '
+              f'(jitter {JITTERS[min(rg, 3)]:g}), CPU rung {rc}, condition '
+              f'number there {cond:.3e}, limit cond·ε {cond_tol(cond):.3e}')
+    for name in TRUNC_PRIORS:
+        print(f'main path (truncation): {name} card vs CPU: ' + ', '.join(
+            f'{k} {v:.3e} (limit {limits[n, k]:.3e})'
+            for (n, k), v in errs.items() if n == name))
+    bad = [key for key, v in errs.items() if not v <= limits[key]]
+    if bad or any(rg != rc for rg, rc, _ in rungs.values()):
+        raise AssertionError(f'the truncation models on the card disagree '
+                             f'with the CPU: {bad}, rungs {rungs}')
+    print(f'main path (truncation): wall time {time.perf_counter() - t_path:.1f}'
+          f' s (card and CPU)')
+    return out
+
+
+def time_truncation(out, card, device='cuda'):
+    """Path 5's times on the card: a second fit of each model from the same
+    start, one lml + gradient, each predict kind with std and with cov."""
+    X, _, y, Xnew, _ = trunc_data(device)
+    orders = np.arange(GP_CURVES)
+    for name in TRUNC_PRIORS:
+        m = out[name]
+        theta = m.coeffs_process.kernel_.theta
+        fns = {'lml + gradient': lambda: m.log_marginal_likelihood(theta,
+                                                                   True)}
+        for kind in KINDS:
+            for ret in ('std', 'cov'):
+                fns[f'predict {kind} {ret}'] = (
+                    lambda kind=kind, ret=ret: m.predict(
+                        Xnew, order=TRUNC_ORDER, kind=kind,
+                        **{'return_' + ret: True}))
+        t = time_ms(fns, rounds=4)
+        evaluations = []
+        fit = trunc_model(name, device, optimizer=counted_lbfgsb(evaluations))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fit.fit(X, y, orders=orders)
+        stop.record()
+        stop.synchronize()
+        print(f'timing [{card}] {name} N={GP_N} f64: fit '
+              f'{start.elapsed_time(stop):.1f} ms over {len(evaluations)} '
+              f'evaluations (a second fit, from the same start), '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+
+
 def drive(fn):
     """Runs ``fn`` once with every kernel's launch count set to 0 just
     before; returns its result and the counts read just after."""
@@ -614,6 +893,7 @@ def main():
                                     rbf_covariance, rbf_covariance_pallas,
                                     rbf_covariance_pallas_plain)
 
+    t_script = time.perf_counter()
     device = torch.device('cuda:0')
     card = card_line()
     print(card)
@@ -807,11 +1087,20 @@ def main():
                       ('fused', {'method': 'fused'})):
         profile(f'pipeline {label} [{card}]', pipeline(**kw))
 
-    # path 3: the single-model conjugate GP, f64; path 4: blocked autograd
+    # path 3: the single-model conjugate GP, f64; path 4: blocked autograd;
+    # path 5: the truncation models at path 3's width
     gp, Xnew, _ = single_model_path(card)
     time_single_model(gp, Xnew, card)
-    del gp
     blocked_autograd_path(X, y, card)
+    del X, y
+    trunc = truncation_path(gp, card)
+    del gp
+    time_truncation(trunc, card)
+    del trunc
+    print(f'timing [{card}] peak memory of the script '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB since path 5 '
+          f'began; wall time of the whole script '
+          f'{time.perf_counter() - t_script:.1f} s')
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -13,11 +13,16 @@ covariance build ``ops.rbf_covariance_pallas`` (``csrc/rbf_cov.cu``); the
 differentiable blocked functions ``ops.batched_blocked_cholesky`` and
 ``ops.blocked_spd_solve_logdet``; and the single-model conjugate GP path:
 ``kernels``, ``linalg``, ``conjugate``, ``optimize.scipy_lbfgsb``,
-``models.ConjugateGaussianProcess`` and ``entry.flagship_step``.
-``convert.to_torch`` moves the JAX package's inputs (numpy arrays and
-scalars) onto a device, and ``convert.to_torch_kernel`` its kernels.
+``models.ConjugateGaussianProcess`` and ``entry.flagship_step``; the
+Student-t process ``models.ConjugateStudentProcess`` and the truncation
+models ``models.TruncationGP`` / ``TruncationTP``, with the series algebra
+and toy-data generators of ``helpers`` and the partial-sum generators of
+``datasets``.  ``convert.to_torch`` moves the JAX package's inputs (numpy
+arrays and scalars) onto a device, ``convert.to_torch_kernel`` its kernels
+and ``convert.to_torch_model`` its models.
 """
-from . import conjugate, convert, entry, kernels, linalg, models, ops, optimize
+from . import (conjugate, convert, datasets, entry, helpers, kernels, linalg,
+               models, ops, optimize)
 from ._config import default_device, default_dtype, resolve_device
 from .kernels import (
     RBF,
@@ -31,11 +36,20 @@ from .kernels import (
     Sum,
     WhiteKernel,
 )
-from .models import BaseConjugateProcess, ConjugateGaussianProcess
+from .models import (
+    BaseConjugateProcess,
+    ConjugateGaussianProcess,
+    ConjugateStudentProcess,
+    TruncationGP,
+    TruncationProcess,
+    TruncationTP,
+)
 
-__all__ = ['conjugate', 'convert', 'entry', 'kernels', 'linalg', 'models',
-           'ops', 'optimize', 'default_device', 'default_dtype',
-           'resolve_device', 'ConstantKernel', 'WhiteKernel', 'RBF', 'Matern',
-           'RationalQuadratic', 'ExpSineSquared', 'DotProduct', 'Sum',
-           'Product', 'Exponentiation', 'BaseConjugateProcess',
-           'ConjugateGaussianProcess']
+__all__ = ['conjugate', 'convert', 'datasets', 'entry', 'helpers', 'kernels',
+           'linalg', 'models', 'ops', 'optimize', 'default_device',
+           'default_dtype', 'resolve_device', 'ConstantKernel', 'WhiteKernel',
+           'RBF', 'Matern', 'RationalQuadratic', 'ExpSineSquared',
+           'DotProduct', 'Sum', 'Product', 'Exponentiation',
+           'BaseConjugateProcess', 'ConjugateGaussianProcess',
+           'ConjugateStudentProcess', 'TruncationProcess', 'TruncationGP',
+           'TruncationTP']

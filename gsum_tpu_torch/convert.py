@@ -4,8 +4,9 @@ R"""Conversion of the JAX package's inputs and state into the port's tensors.
 arrays that ``numpy.asarray`` reads.  :func:`to_torch` turns such values, or
 dicts, tuples and lists of them, into tensors on an explicit device.
 :func:`to_torch_kernel` rebuilds a ``gsum_tpu`` kernel as the port's kernel
-of the same class and parameters (its θ, bounds and fixed flags come along).
-Neither imports the JAX package: kernels are read by duck typing.
+of the same class and parameters (its θ, bounds and fixed flags come along),
+and :func:`to_torch_model` a ``gsum_tpu`` model as the port's.  None of them
+imports the JAX package: kernels and models are read by duck typing.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from ._config import resolve_device
 
-__all__ = ['to_torch', 'to_torch_kernel']
+__all__ = ['to_torch', 'to_torch_kernel', 'to_torch_model']
 
 
 def to_torch(tree, device, dtype=None):
@@ -74,3 +75,77 @@ def to_torch_kernel(k):
     params = {key: to_torch_kernel(v) if key in ('k1', 'k2', 'kernel') else v
               for key, v in k.get_params(deep=False).items()}
     return cls(**params)
+
+
+_CONJUGATE = ('ConjugateGaussianProcess', 'ConjugateStudentProcess')
+_TRUNCATION = ('TruncationGP', 'TruncationTP')
+
+
+def _scalar_lambda(fn, name):
+    """The number a ``gsum_tpu`` truncation model closed into its
+    ``lambda X, <name>=value: value * ones`` for a scalar ``ratio`` / ``ref``,
+    or None for a user's callable."""
+    code = getattr(fn, '__code__', None)
+    if (getattr(fn, '__name__', None) == '<lambda>' and code is not None
+            and code.co_varnames[:2] == ('X', name) and fn.__defaults__):
+        return fn.__defaults__[0]
+    return None
+
+
+def _conjugate_settings(m, needs):
+    """Constructor settings of a ``gsum_tpu`` conjugate process, with its
+    fitted kernel and no optimizer when it is fitted; a user basis is added
+    to ``needs``."""
+    fitted = getattr(m, '_fit', False)
+    kw = dict(center=m._center_0, disp=m._disp_0, nugget=m.nugget,
+              optimizer=None if fitted else m.optimizer,
+              n_restarts_optimizer=m.n_restarts_optimizer,
+              copy_X_train=m.copy_X_train, random_state=m.random_state,
+              decomposition=m.decomposition, chol_engine=m.chol_engine)
+    if np.isinf(m._df_0):
+        kw['sd'] = m._scale_0
+    else:
+        kw.update(df=m._df_0, scale=m._scale_0)
+    kernel = m.kernel_ if fitted else m.kernel
+    kw['kernel'] = None if kernel is None else to_torch_kernel(kernel)
+    if getattr(m.basis, '__name__', None) != '_default_basis':
+        needs.append('basis')
+    return kw
+
+
+def to_torch_model(m, device, **overrides):
+    """The port's twin of ``m``, a ``gsum_tpu`` ``ConjugateGaussianProcess``,
+    ``ConjugateStudentProcess``, ``TruncationGP`` or ``TruncationTP``.
+
+    It carries ``m``'s constructor settings (priors, nugget, optimizer and
+    restarts, decomposition, Cholesky engine, and for a truncation model
+    ``ratio``, ``ref``, ``excluded`` and ``ratio_kws``) and its kernel
+    through :func:`to_torch_kernel`: the fitted ``kernel_`` with
+    ``optimizer=None`` when ``m`` is fitted, so that a fit on the same data
+    reproduces ``m``'s fitted state.  The result is not fitted.
+
+    A user's callable (``basis``, a callable ``ratio`` or ``ref``) is written
+    in ``jax.numpy`` and cannot cross: pass its torch twin in
+    ``overrides``, which replace any constructor setting.
+    """
+    from . import models
+
+    name = type(m).__name__
+    needs = []
+    if name in _CONJUGATE:
+        kw = _conjugate_settings(m, needs)
+    elif name in _TRUNCATION:
+        kw = _conjugate_settings(m.coeffs_process, needs)
+        kw.update(excluded=m.excluded, ratio_kws=dict(m.ratio_kws))
+        for key in ('ratio', 'ref'):
+            kw[key] = _scalar_lambda(getattr(m, key), key)
+            if kw[key] is None:
+                needs.append(key)
+    else:
+        raise TypeError(f'no model {name!r} in gsum_tpu_torch.models')
+    missing = [k for k in needs if k not in overrides]
+    if missing:
+        raise ValueError(f'{name} has a user callable for {missing}: pass its '
+                         'torch twin as a keyword')
+    kw.update(overrides)
+    return getattr(models, name)(device=resolve_device(device), **kw)

@@ -1,10 +1,12 @@
-R"""Conjugacy-based Gaussian-process models (counterpart of the conjugate GP
-part of ``gsum_tpu/models.py``).
+R"""Conjugacy-based Gaussian- and Student-t-process models and the
+truncation-error models (counterpart of ``gsum_tpu/models.py``).
 
-``ConjugateGaussianProcess`` and its base class ``BaseConjugateProcess``
-keep the JAX package's public API (constructor arguments,
-``fit`` / ``predict`` / ``log_marginal_likelihood`` / ``sample_y``, the
-trailing-underscore fitted attributes), with PyTorch inside:
+``ConjugateGaussianProcess``, ``ConjugateStudentProcess``, their base class
+``BaseConjugateProcess``, and ``TruncationGP`` / ``TruncationTP`` over them
+(base class ``TruncationProcess``) keep the JAX package's public API
+(constructor arguments, ``fit`` / ``predict`` / ``log_marginal_likelihood``
+/ ``sample_y``, the trailing-underscore fitted attributes), with PyTorch
+inside:
 
 - The log-marginal likelihood is one plain function of the kernel's
   log-parameter tensor; its gradient comes from autograd.  PyTorch runs
@@ -23,10 +25,10 @@ there and cast to the promoted dtype of themselves and float64, as JAX's
 x64 promotion gives, so an f32 ``X`` gives f64 results.
 
 Not ported yet: derivative observations (``fit`` / ``predict`` with a
-non-zero ``dorders``), which need ``derivs`` (ROADMAP.md queue A, model
-checking), ``ConjugateStudentProcess`` and the truncation models (queue A,
-the rest of the models); the ``_fused_kind`` / ``_fused_extra`` hooks are
-where the Student-t process adds its mean-uncertainty term.
+non-zero ``dorders``, ``TruncationProcess.fit(dderivs=...)``), which need
+``derivs`` (ROADMAP.md queue A, model checking), and
+``TruncationPointwise``, which needs ``stats`` (queue A, the statistics
+slice).
 """
 from __future__ import annotations
 
@@ -36,26 +38,29 @@ import numpy as np
 import torch
 
 from . import conjugate as _conj
-from ._config import as_input, resolve_device, result_dtype
+from ._config import as_input, device_constant, resolve_device, result_dtype
+from .helpers import coefficients, geometric_sum
 from .kernels import RBF, ConstantKernel
-from .linalg import cholesky, eigh_sqrt, logdet_sqrt, solve_sqrt
+from .linalg import (cholesky, eigh_sqrt, logdet_sqrt, robust_cho_solve,
+                     robust_cholesky, solve_sqrt, spd_logdet)
 from .ops.blockchol import batched_blocked_cholesky
 from .optimize import ConvergenceWarning, scipy_lbfgsb
 
 _LOG_2PI = math.log(2 * math.pi)
 
 __all__ = ['BaseConjugateProcess', 'ConjugateGaussianProcess',
-           'ConvergenceWarning']
+           'ConjugateStudentProcess', 'TruncationProcess', 'TruncationGP',
+           'TruncationTP', 'ConvergenceWarning']
 
 
 def _default_basis(X):
     return torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
 
 
-def _no_derivatives(dorders, where):
+def _no_derivatives(dorders, where, arg='dorders'):
     if dorders is not None and np.any(np.asarray(dorders)):
         raise NotImplementedError(
-            f'derivative observations ({where}(dorders=...) with a non-zero '
+            f'derivative observations ({where}({arg}=...) with a non-zero '
             'order) are not ported yet: they need gsum_tpu_torch.derivs, '
             'which comes with the model-checking slice')
 
@@ -696,3 +701,440 @@ class ConjugateGaussianProcess(BaseConjugateProcess):
         if log:
             return log_like
         return torch.exp(torch.as_tensor(log_like))
+
+
+def _log_norm(df, scale_sq, disp, disp_zero):
+    """log of the normal-scaled-inverse-χ² normalizer.  ``df`` is always a
+    concrete number (ν₀, or ν₀ plus the count of y), so its log-gamma is
+    taken on the host; ν = ∞ (``sd=``) gives inf − inf = NaN, as in the JAX
+    package."""
+    df = float(df)
+    norm = math.lgamma(df / 2.) - df / 2. * torch.log(df * scale_sq / 2.)
+    if not disp_zero:
+        norm = norm + 0.5 * spd_logdet(2 * math.pi * disp)
+    return norm
+
+
+class ConjugateStudentProcess(BaseConjugateProcess):
+    R"""Conjugacy-based Student-t process.
+
+    The mean and the marginal variance are integrated out, which gives a
+    multivariate-t likelihood, written as a ratio of
+    normal-scaled-inverse-χ² normalizers.  Predictions add the
+    mean-uncertainty term var·(B_c V B_cᵀ) with the conditional basis
+    B_c = B_new − R_no R_oo⁻¹ B_old.
+    """
+
+    def _disp0_tensor(self):
+        return device_constant(np.atleast_2d(np.asarray(self.disp0, float)),
+                               self.device)
+
+    def cov(self, X, Xp=None):
+        X = self._points(X)
+        Xp_arr = None if Xp is None else self._points(Xp)
+        if not self._fit:
+            df, scale, disp = self.df0, self.scale0, self._disp0_tensor()
+            kernel = self.kernel if self.kernel is not None else self._default_kernel
+        else:
+            df, scale, disp = self.df_, self.scale_, self.disp_
+            kernel = self.kernel_
+
+        if df <= 2:
+            raise ValueError('df must be greater than 2 for the covariance to exist')
+
+        corr = kernel(X, Xp_arr)
+        if Xp_arr is None:
+            Xp_arr = X
+        var = self.compute_cov_factor(scale_sq=scale ** 2, df=df)
+        return var * (corr + self._basis(X) @ disp @ self._basis(Xp_arr).mT)
+
+    _fused_kind = 'tp'
+
+    def _fused_extra(self):
+        return (self.disp_,)
+
+    def predict(self, X, return_std=False, return_cov=False, Xc=None, y=None,
+                pred_noise=False, dorders=None):
+        R"""GP prediction plus the mean-uncertainty term var·(B_c V B_cᵀ).
+
+        Fitted, every path (training set, ``Xc``, ``y``) adds the term in
+        :meth:`_predict_core`.  Before ``fit`` the JAX package adds the
+        prior's var·(B V₀ Bᵀ) on top of :meth:`cov`, which already holds
+        it, so the prior dispersion counts twice; that is mirrored here.
+        """
+        pred = super().predict(X, return_std=return_std,
+                               return_cov=return_cov, Xc=Xc, y=y,
+                               pred_noise=pred_noise, dorders=dorders)
+        if self._fit or not (return_std or return_cov):
+            return pred
+        basis = self._basis(self._points(X))
+        var = self.compute_cov_factor(scale_sq=self.scale0 ** 2, df=self.df0)
+        mean_cov = var * (basis @ self._disp0_tensor() @ basis.mT)
+        mean, second = pred
+        if return_std:
+            return mean, second + torch.sqrt(torch.clamp(torch.diag(mean_cov),
+                                                         min=0.0))
+        return mean, second + mean_cov
+
+    def _lml(self, kernel, theta, X, y, basis):
+        decomposition = self.decomposition
+        center0, disp0 = self.center0, self.disp0
+        df0, scale0 = self.df0, self.scale0
+        disp0_zero = bool(np.all(np.asarray(disp0) == 0))
+        N, ny = X.shape[0], y.shape[1]
+        R = kernel.value_fn(theta, X, None)
+        R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
+        sqrt_R, ok = _safe_sqrt_R(R_reg, decomposition,
+                                  _resolve_chol_fn(self.chol_engine))
+
+        df = _conj.compute_df(y=y, df0=df0)
+        disp = _conj.compute_disp(y=y, sqrt_R=sqrt_R, basis=basis,
+                                  disp0=disp0, decomposition=decomposition)
+        scale_sq = _conj.compute_scale_sq(
+            y=y, sqrt_R=sqrt_R, basis=basis, center0=center0, disp0=disp0,
+            df0=df0, scale0=scale0, decomposition=decomposition)
+        logdet_R = logdet_sqrt(sqrt_R, decomposition)
+
+        scale0_sq = torch.full((), float(scale0) ** 2, dtype=R.dtype,
+                               device=R.device)
+        log_like = _log_norm(df, scale_sq, disp, disp0_zero) \
+            - _log_norm(df0, scale0_sq, self._disp0_tensor(), disp0_zero) \
+            - ny / 2. * (N * _LOG_2PI + logdet_R)
+        return torch.where(ok, log_like, -torch.inf)
+
+
+def _columns(a, mask):
+    """The columns of ``a`` where the numpy boolean ``mask`` is True, picked
+    by Python index (a boolean tensor index would wait for the device)."""
+    idx = np.flatnonzero(mask)
+    if len(idx) == a.shape[-1]:
+        return a
+    return torch.stack([a[..., int(i)] for i in idx], dim=-1)
+
+
+class TruncationProcess:
+    R"""Truncation-error process over partial sums of a power series.
+
+    Wraps a coefficient process (CGP or CSP): ``fit`` extracts the
+    coefficients ``c_n = Δy_n / (ref·Qⁿ)`` and fits the process to them;
+    predictions of the partial sum y_k and of the truncation error
+    y_∞ − y_k follow from geometric sums of the ratio Q.
+
+    Parameters
+    ----------
+    kernel : Kernel
+    ratio : scalar or callable ``X ↦ (n,)`` tensor (X is the model's f64
+        points on its device)
+    ref : scalar or callable, as ``ratio``
+    excluded : 1-D array of ints, optional — orders excluded from the sums
+    ratio_kws : dict, optional — keywords of ``ratio``
+    **kwargs : forwarded to the coefficient process (``device`` too)
+    """
+
+    def __init__(self, kernel=None, ratio=0.5, ref=1, excluded=None,
+                 ratio_kws=None, **kwargs):
+        self.coeffs_process = BaseConjugateProcess(kernel=kernel, **kwargs)
+        self.device = self.coeffs_process.device
+        ones = self._ones
+        if not callable(ref):
+            self.ref = lambda X, ref=ref: ref * ones(X)
+        else:
+            self.ref = ref
+        if not callable(ratio):
+            self.ratio = lambda X, ratio=ratio: ratio * ones(X)
+        else:
+            self.ratio = ratio
+
+        self.kernel = kernel
+        self._log_like = None
+
+        self.excluded = excluded
+        self.ratio_kws = {} if ratio_kws is None else ratio_kws
+
+        self._fit = False
+        self.X_train_ = None
+        self.y_train_ = None
+        self.orders_ = None
+        self.dX_ = None
+        self.dy_ = None
+        self.dderivs_ = None
+        self.coeffs_ = None
+
+    def _ones(self, X):
+        return torch.ones(X.shape[0], dtype=torch.float64, device=self.device)
+
+    def _points(self, X):
+        return self.coeffs_process._points(X)
+
+    def _ratio(self, X, **ratio_kws):
+        return self.coeffs_process._tensor(self.ratio(X, **ratio_kws))
+
+    def _ref(self, X):
+        return self.coeffs_process._tensor(self.ref(X))
+
+    def mean(self, X, start=0, end=np.inf):
+        """Mean of the sum of orders in [start, end]."""
+        X = self._points(X)
+        coeff_mean = self.coeffs_process.mean(X=X)
+        ratio_sum = geometric_sum(x=self._ratio(X, **self.ratio_kws),
+                                  start=start, end=end, excluded=self.excluded)
+        return self._ref(X) * ratio_sum * coeff_mean
+
+    def cov(self, X, Xp=None, start=0, end=np.inf):
+        """Covariance of the sum of orders in [start, end]."""
+        X = self._points(X)
+        if Xp is not None:
+            Xp = self._points(Xp)
+        coeff_cov = self.coeffs_process.cov(X=X, Xp=Xp)
+        Xp = X if Xp is None else Xp
+        ratio_mat = self._ratio(X, **self.ratio_kws)[:, None] \
+            * self._ratio(Xp, **self.ratio_kws)
+        ratio_sum = geometric_sum(x=ratio_mat, start=start, end=end,
+                                  excluded=self.excluded)
+        ref_mat = self._ref(X)[:, None] * self._ref(Xp)
+        return ref_mat * ratio_sum * coeff_cov
+
+    def basis(self, X, start=0, end=np.inf):
+        """Basis of the summed process."""
+        X = self._points(X)
+        cn_basis = self.coeffs_process._basis(X)
+        ratio = self._ratio(X, **self.ratio_kws)[:, None]
+        ratio_sum = geometric_sum(x=ratio, start=start, end=end,
+                                  excluded=self.excluded)
+        return self._ref(X)[:, None] * ratio_sum * cn_basis
+
+    def underlying_properties(self, X, order, return_std=False, return_cov=False):
+        y_mean = self.mean(X, start=order + 1)
+        if return_cov:
+            return y_mean, self.cov(X, start=order + 1)
+        elif return_std:
+            return y_mean, torch.sqrt(torch.diag(self.cov(X, start=order + 1)))
+        return y_mean
+
+    def fit(self, X, y, orders, dX=None, dy=None, dderivs=None):
+        """Extracts the coefficients and fits the coefficient process.
+
+        ``(dX, dy)`` constrain the truncation error to ``dy`` at ``dX``.
+        ``dderivs`` with a non-zero order (derivative constraints) raises
+        ``NotImplementedError`` until ``derivs`` is ported.
+        """
+        if dderivs is not None:
+            if dX is None:
+                raise ValueError('dderivs requires constraint points dX')
+            _no_derivatives(dderivs, 'fit', 'dderivs')
+        X = self._points(X)
+        y = self.coeffs_process._tensor(y)
+        orders = np.asarray(orders)
+        self.X_train_ = X
+        self.y_train_ = y
+        self.orders_ = orders
+        orders_mask = ~np.isin(orders, self.excluded)
+
+        self.dX_ = None if dX is None else self._points(dX)
+        self.dy_ = None if dy is None else self.coeffs_process._tensor(dy)
+        self.dderivs_ = None
+
+        ratio = self._ratio(X, **self.ratio_kws)
+        ref = self._ref(X)
+        if torch.atleast_1d(ratio).ndim > 1:
+            raise ValueError('ratio must return a 1d array or a scalar')
+        if torch.atleast_1d(ref).ndim > 1:
+            raise ValueError('ref must return a 1d array or a scalar')
+        self.coeffs_ = _columns(
+            coefficients(y=y, ratio=ratio, ref=ref, orders=orders), orders_mask)
+        self.coeffs_process.fit(X=X, y=self.coeffs_)
+        self._fit = True
+        return self
+
+    def predict(self, X, order, return_std=False, return_cov=False, Xc=None,
+                y=None, pred_noise=False, kind='both', dorders=None,
+                _parts_out=None):
+        R"""Predictive distribution of y_order (+ truncation error) at X.
+
+        ``kind`` selects the interpolant ('interp'), the truncation error
+        ('trunc'), or their sum ('both').  ``pred_noise`` is accepted and
+        ignored, as in the JAX package.  ``dorders`` with a non-zero order
+        raises ``NotImplementedError`` until ``derivs`` is ported.
+        ``_parts_out`` (private): a dict that receives the jitter-ladder
+        factors and the constraint cross-covariance, so that
+        ``TruncationTP.predict`` reuses them.
+        """
+        X = self._points(X)
+        _no_derivatives(dorders, 'predict')
+        if not self._fit:
+            return self.underlying_properties(X, order, return_cov=return_cov,
+                                              return_std=return_std)
+
+        Xc = self.X_train_ if Xc is None else self._points(Xc)
+        if y is None:
+            if order not in self.orders_:
+                raise ValueError('order must be in orders passed to `fit`')
+            if self.y_train_.ndim == 1:
+                y = self.y_train_
+            else:
+                y = torch.squeeze(_columns(self.y_train_, self.orders_ == order))
+        else:
+            y = self.coeffs_process._tensor(y)
+
+        if kind not in ['both', 'interp', 'trunc']:
+            raise ValueError('kind must be one of "both", "interp" or "trunc"')
+
+        m_pred, K_pred = 0, 0
+        if kind in ('both', 'interp'):
+            m_old = self.mean(X=Xc, start=0, end=order)
+            # Xp given: no white-noise term (a noise-free Gram matrix), so
+            # the jitter ladder decides the factor
+            K_oo = self.cov(start=0, end=order, X=Xc, Xp=Xc)
+            m_new = self.mean(X=X, start=0, end=order)
+            K_on = self.cov(start=0, end=order, X=Xc, Xp=X)
+            K_nn = self.cov(start=0, end=order, X=X, Xp=X)
+            K_no = K_on.mT
+
+            # one jitter-ladder factorization serves every K_oo solve
+            Lok_oo = robust_cholesky(K_oo)
+            if _parts_out is not None:
+                _parts_out['Lok_oo'] = Lok_oo
+            alpha = robust_cho_solve(Lok_oo, y - m_old)
+            m_pred = m_pred + m_new + K_no @ alpha
+            if return_std or return_cov:
+                K_pred = K_pred + K_nn - K_no @ robust_cho_solve(Lok_oo, K_on)
+
+        if kind in ('both', 'trunc'):
+            m_new_trunc = self.mean(X=X, start=order + 1, end=np.inf)
+            K_nn_trunc = self.cov(X=X, Xp=X, start=order + 1, end=np.inf)
+
+            X_trunc = self.dX_
+            if X_trunc is not None:  # the truncation error is constrained
+                m_old_trunc = self.mean(X=X_trunc, start=order + 1, end=np.inf)
+                K_oo_trunc = self.cov(X=X_trunc, Xp=X_trunc, start=order + 1,
+                                      end=np.inf)
+                K_on_trunc = self.cov(X=X_trunc, Xp=X, start=order + 1,
+                                      end=np.inf)
+                K_no_trunc = K_on_trunc.mT
+                Lok_trunc = robust_cholesky(K_oo_trunc)
+                if _parts_out is not None:
+                    _parts_out['K_no_trunc'] = K_no_trunc
+                    _parts_out['Lok_trunc'] = Lok_trunc
+                alpha_trunc = robust_cho_solve(Lok_trunc, self.dy_ - m_old_trunc)
+                m_pred = m_pred + m_new_trunc + K_no_trunc @ alpha_trunc
+                if return_std or return_cov:
+                    K_pred = K_pred + K_nn_trunc \
+                        - K_no_trunc @ robust_cho_solve(Lok_trunc, K_on_trunc)
+            else:
+                m_pred = m_pred + m_new_trunc
+                if return_std or return_cov:
+                    K_pred = K_pred + K_nn_trunc
+
+        if return_cov:
+            return m_pred, K_pred
+        if return_std:
+            # conditioning on (dX, dy) pins the variance to exactly zero at
+            # the constraint points; clamp the round-off-negative diagonal
+            return m_pred, torch.sqrt(torch.clamp(torch.diag(K_pred), min=0.0))
+        return m_pred
+
+    def log_marginal_likelihood(self, theta, eval_gradient=False, X=None, y=None,
+                                orders=None, **ratio_kws):
+        R"""Joint log-likelihood of (θ, ratio) with the change-of-variables
+        determinant y → c.  ``ratio_kws`` go to ``ratio`` in place of the
+        model's own (``ratio=0.4`` re-evaluates a scalar ratio at 0.4).  The
+        determinant does not depend on θ, so the gradient is the coefficient
+        process's."""
+        X = self.X_train_ if X is None else self._points(X)
+        y = self.y_train_ if y is None else self.coeffs_process._tensor(y)
+        orders = self.orders_ if orders is None else np.asarray(orders)
+        ref = self._ref(X)
+        ratio = self._ratio(X, **ratio_kws)
+
+        orders_mask = ~np.isin(orders, self.excluded)
+        coeffs = _columns(coefficients(y=y, ratio=ratio, ref=ref, orders=orders),
+                          orders_mask)
+        result = self.coeffs_process.log_marginal_likelihood(
+            theta, eval_gradient=eval_gradient, X=X, y=coeffs)
+        if eval_gradient:
+            coeff_log_like, coeff_log_like_gradient = result
+        else:
+            coeff_log_like = result
+
+        orders_in = orders[orders_mask]
+        n = len(orders_in)
+        det_factor = torch.sum(n * torch.log(torch.abs(ref))
+                               + float(np.sum(orders_in))
+                               * torch.log(torch.abs(ratio)))
+        y_log_like = coeff_log_like - det_factor
+        if eval_gradient:
+            return y_log_like, coeff_log_like_gradient
+        return y_log_like
+
+
+class TruncationGP(TruncationProcess):
+    R"""Truncation process with a ConjugateGaussianProcess over the
+    coefficients."""
+
+    def __init__(self, kernel=None, ratio=0.5, ref=1, excluded=None,
+                 ratio_kws=None, **kwargs):
+        super().__init__(kernel=kernel, ref=ref, ratio=ratio, excluded=excluded,
+                         ratio_kws=ratio_kws, **kwargs)
+        self.coeffs_process = ConjugateGaussianProcess(kernel=kernel, **kwargs)
+
+
+class TruncationTP(TruncationProcess):
+    R"""Truncation process with a ConjugateStudentProcess over the
+    coefficients."""
+
+    def __init__(self, kernel=None, ratio=0.5, ref=1, excluded=None,
+                 ratio_kws=None, **kwargs):
+        super().__init__(kernel=kernel, ratio=ratio, ref=ref, excluded=excluded,
+                         ratio_kws=ratio_kws, **kwargs)
+        self.coeffs_process = ConjugateStudentProcess(kernel=kernel, **kwargs)
+
+    def predict(self, X, order, return_std=False, return_cov=False, Xc=None,
+                y=None, pred_noise=False, kind='both', dorders=None):
+        """Adds the marginalized-mean covariance, with conditional bases for
+        the interpolant and for the (constrained) truncation error.  Before
+        ``fit`` the prior is returned unchanged: the coefficient process's
+        prior covariance already holds var·(B V₀ Bᵀ)."""
+        parts = {}
+        pred = super().predict(X=X, order=order, return_std=return_std,
+                               return_cov=return_cov, Xc=Xc, y=y,
+                               pred_noise=pred_noise, kind=kind,
+                               dorders=dorders, _parts_out=parts)
+
+        if not return_std and not return_cov:
+            return pred
+        if not self._fit:
+            return pred
+
+        X = self._points(X)
+        Xc = self.X_train_ if Xc is None else self._points(Xc)
+
+        var = self.coeffs_process.cov_factor_
+        disp = self.coeffs_process.disp_
+        p = disp.shape[0]
+        basis_lower = torch.zeros((X.shape[0], p), dtype=disp.dtype,
+                                  device=disp.device)
+        basis_trunc = basis_lower
+
+        if kind in ('both', 'interp'):
+            K_no = self.cov(X=X, Xp=Xc, start=0, end=order)
+            basis_lower_new = self.basis(X=X, start=0, end=order)
+            basis_lower_old = self.basis(X=Xc, start=0, end=order)
+            basis_lower = basis_lower_new \
+                - K_no @ robust_cho_solve(parts['Lok_oo'], basis_lower_old)
+
+        if kind in ('both', 'trunc'):
+            basis_trunc = self.basis(X=X, start=order + 1, end=np.inf)
+            if self.dX_ is not None:
+                basis_trunc_old = self.basis(X=self.dX_, start=order + 1,
+                                             end=np.inf)
+                basis_trunc = basis_trunc - parts['K_no_trunc'] @ \
+                    robust_cho_solve(parts['Lok_trunc'], basis_trunc_old)
+
+        basis = basis_lower + basis_trunc
+        mean_cov = var * basis @ disp @ basis.mT
+
+        mean, second = pred
+        if return_std:
+            return mean, second + torch.sqrt(torch.clamp(torch.diag(mean_cov),
+                                                         min=0.0))
+        return mean, second + mean_cov

@@ -295,3 +295,97 @@ def test_blocked_autograd_f32_through_the_kernel(cuda, route, launches):
     assert got64[2:] == (0, 0)
     for a, r in zip(got64[:2], ref[:2]):
         assert _rel_fro(a, r) <= 1e-9
+
+
+def test_one_dimensional_whitening_and_distances_on_the_card(cuda):
+    """``cholesky_errors`` and the three ``mahalanobis`` forms with a 1-D y
+    on CUDA tensors: a whitened vector and 0-d distances, within 1e-12 of
+    the same calls on the CPU."""
+    rng = np.random.RandomState(0)
+    A = rng.randn(5, 5)
+    M = A @ A.T + 5 * np.eye(5)
+    w, Q = np.linalg.eigh(M)
+    args = {'y': rng.randn(5), 'mean': rng.randn(5),
+            'chol': np.linalg.cholesky(M), 'inv': np.linalg.inv(M),
+            'sqrt_mat': Q @ np.diag(np.sqrt(w)) @ Q.T}
+    calls = {
+        'cholesky_errors': lambda a: gt.linalg.cholesky_errors(
+            a['y'], a['mean'], a['chol']),
+        **{form: (lambda a, form=form: gt.linalg.mahalanobis(
+            a['y'], a['mean'], **{form: a[form]}))
+           for form in ('chol', 'inv', 'sqrt_mat')}}
+    for name, call in calls.items():
+        got, want = (call({k: torch.tensor(v, device=device)
+                           for k, v in args.items()})
+                     for device in (cuda, 'cpu'))
+        assert got.device.type == 'cuda'
+        assert got.shape == want.shape == ((5,) if name == 'cholesky_errors'
+                                           else ()), name
+        assert (got.cpu() - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+def _rung_and_cond(M):
+    """The first rung of ``robust_cholesky``'s jitter ladder that factors M,
+    and the condition number of the jittered matrix there."""
+    s = torch.diagonal(M).max().item()
+    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+    for rung, j in enumerate((0.0, 1e-12, 1e-9, 1e-6)):
+        if torch.linalg.cholesky_ex(M + j * s * eye).info.item() == 0:
+            ev = torch.linalg.eigvalsh(M)
+            return rung, (ev[-1].item() + j * s) / (max(ev[0].item(), 0.0)
+                                                    + j * s)
+    raise AssertionError('every rung of the ladder failed')
+
+
+@pytest.mark.parametrize('name,priors', [
+    ('TruncationGP', dict(center=0, disp=0, df=3, scale=1)),
+    ('TruncationTP', dict(center=0, disp=1, df=5, scale=1))])
+def test_truncation_models_on_the_card_match_the_cpu(cuda, name, priors):
+    """N=60 points in the unit square, 5 orders (ratio 0.5, ref 10): fit on
+    the card, then the same model on the CPU at the card's fitted kernel.
+    The lml and its gradient at the start θ and at ``ratio=0.45`` within
+    1e-10 (the gradient by its largest entry); 'trunc', whose posterior
+    dispersion and center solve with the coefficients' correlation matrix R
+    (its fitted white noise is small), within cond(R)·ε, at least 1e-10;
+    'interp' and 'both', which solve with the noise-free K_oo, within cond·ε
+    of its jittered condition number, at the same jitter rung on both
+    devices."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(60, 2)
+    c = np.sin(3 * X[:, :1] + np.arange(5)) + 0.01 * rng.randn(60, 5)
+    y = gt.helpers.partials(torch.tensor(c), ratio=0.5, ref=10)
+    Xnew = rng.rand(9, 2)
+    orders = np.arange(5)
+
+    def model(device, **kw):
+        kernel = kw.pop('kernel', None) or \
+            gt.RBF(0.3, (1e-2, 10)) + gt.WhiteKernel(1e-4, (1e-8, 1e-1))
+        return getattr(gt, name)(kernel, ratio=0.5, ref=10, device=device,
+                                 **priors, **kw)
+
+    card = model(cuda).fit(X, y.to(cuda), orders=orders)
+    assert card.coeffs_.device.type == 'cuda'
+    cpu = model('cpu', kernel=card.coeffs_process.kernel_.clone(),
+                optimizer=None).fit(X, y, orders=orders)
+    theta0 = card.coeffs_process.kernel.theta
+    for kw in ({}, {'ratio': 0.45}):
+        (l_g, g_g), (l_c, g_c) = (m.log_marginal_likelihood(theta0, True, **kw)
+                                  for m in (card, cpu))
+        assert abs(l_g.item() - l_c.item()) <= 1e-10 * abs(l_c.item())
+        assert (g_g.cpu() - g_c).abs().max() <= 1e-10 * g_c.abs().max()
+    rungs = [_rung_and_cond(m.cov(X, X, start=0, end=3)) for m in (card, cpu)]
+    assert rungs[0][0] == rungs[1][0], rungs
+    eps = np.finfo(float).eps
+    tol = max(1e-10, rungs[0][1] * eps)
+    R = cpu.coeffs_process.corr_ + cpu.coeffs_process.nugget * torch.eye(60)
+    tol_trunc = max(1e-10, torch.linalg.cond(R).item() * eps)
+    for kind in ('both', 'interp', 'trunc'):
+        for ret in ('std', 'cov'):
+            got, want = (m.predict(Xnew, order=3, kind=kind,
+                                   **{'return_' + ret: True})
+                         for m in (card, cpu))
+            for g, w in zip(got, want):
+                assert g.device.type == 'cuda'
+                limit = tol_trunc if kind == 'trunc' else tol
+                assert (g.cpu() - w).abs().max() <= limit * max(
+                    w.abs().max(), 1e-300), (kind, ret, limit)
