@@ -58,7 +58,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    blocked autograd routes' forward + backward, and profiles one lml +
    gradient and one forward + backward of ``blocked_spd_solve_logdet``;
 8. times the truncation models' second fit, lml + gradient and each
-   ``predict`` kind, and prints the script's wall time.
+   ``predict`` kind, profiles one 'both' prediction of each, and prints the
+   script's wall time.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -323,11 +324,13 @@ def max_rel(a, b):
     return ((a.double() - b.double()).abs() / b.double().abs()).max().item()
 
 
-def rel_err(a, ref):
+def rel_err(a, ref, band=0.0):
     """max |a − ref| / max |ref|: the error against the result's own scale
-    (element-wise ratios blow up where a curve crosses zero)."""
+    (element-wise ratios blow up where a curve crosses zero); a predicted
+    mean against its band's scale too (``band``, the largest std), since a
+    mean near 0 is the remainder of a cancellation."""
     a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
-    scale = ref.abs().max()
+    scale = max(ref.abs().max().item(), float(band))
     # an all-zero result (the unconstrained truncation mean at center 0)
     # is held absolutely
     return ((a - ref).abs().max() / (scale if scale > 0 else 1)).item()
@@ -758,16 +761,29 @@ def truncation_path(gp, card, device='cuda'):
         rung_c = ladder(cpu.cov(X, X, start=0, end=TRUNC_ORDER))[0]
         rungs[name] = (rung_g, rung_c, cond)
         for kind in KINDS:
-            for ret in ('std', 'cov'):
-                want = cpu.predict(Xnew, order=TRUNC_ORDER, kind=kind,
-                                   **{'return_' + ret: True})
-                tol = GP_TOL if kind == 'trunc' else cond_tol(cond)
-                for label, g, w in zip(('mean', ret), out[name, kind, ret],
-                                       want):
-                    if ret == 'cov' and label == 'mean':
-                        continue          # the same mean as with std
-                    errs[name, f'{kind} {label}'] = rel_err(g, w)
-                    limits[name, f'{kind} {label}'] = tol
+            m_c, sd_c = cpu.predict(Xnew, order=TRUNC_ORDER, kind=kind,
+                                    return_std=True)
+            cov_c = cpu.predict(Xnew, order=TRUNC_ORDER, kind=kind,
+                                return_cov=True)[1]
+            (m_g, sd_g), (_, cov_g) = (out[name, kind, 'std'],
+                                       out[name, kind, 'cov'])
+            errs[name, f'{kind} mean'] = rel_err(m_g, m_c, sd_c.max())
+            errs[name, f'{kind} std'] = rel_err(sd_g, sd_c)
+            errs[name, f'{kind} cov'] = rel_err(cov_g, cov_c)
+            for label in ('mean', 'std', 'cov'):
+                limits[name, f'{kind} {label}'] = (
+                    GP_TOL if kind == 'trunc' else cond_tol(cond))
+            if kind == 'interp' and name == 'TruncationGP':
+                # context: how far round-off alone moves the interpolant, on
+                # one device, with the training points in another order
+                perm = np.random.RandomState(1).permutation(GP_N)
+                m_p, sd_p = trunc_model(
+                    name, 'cpu', kernel=kernel.clone(), optimizer=None).fit(
+                    X[perm], y.cpu()[perm], orders=orders).predict(
+                    Xnew, order=TRUNC_ORDER, kind=kind, return_std=True)
+                print(f'context: {name} interp on the CPU, points permuted '
+                      f'against not: mean {rel_err(m_p, m_c, sd_c.max()):.3e}'
+                      f', std {rel_err(sd_p, sd_c):.3e}')
         mc = out[name, 'con']
         cpu.fit(X, y.cpu(), orders=orders, dX=dX, dy=0)
         K_t = mc.cov(dX, dX, start=TRUNC_ORDER + 1)
@@ -779,9 +795,11 @@ def truncation_path(gp, card, device='cuda'):
             want = cpu.predict(Xcon, order=TRUNC_ORDER, kind=kind,
                                return_std=True)
             tol = cond_tol(max(cond_t, cond) if kind == 'both' else cond_t)
-            for label, g, w in zip(('mean', 'std'), out[name, kind, 'con'],
-                                   want):
-                errs[name, f'constrained {kind} {label}'] = rel_err(g, w)
+            (m_g, sd_g), (m_c, sd_c) = out[name, kind, 'con'], want
+            errs[name, f'constrained {kind} mean'] = rel_err(m_g, m_c,
+                                                             sd_c.max())
+            errs[name, f'constrained {kind} std'] = rel_err(sd_g, sd_c)
+            for label in ('mean', 'std'):
                 limits[name, f'constrained {kind} {label}'] = tol
         # at the constraint points the band's variance is pinned to the
         # jitter the ladder added: std ≤ √(j + cond_t·ε·max diag)
@@ -841,6 +859,8 @@ def time_truncation(out, card, device='cuda'):
               f'{start.elapsed_time(stop):.1f} ms over {len(evaluations)} '
               f'evaluations (a second fit, from the same start), '
               + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+        profile(f'{name} predict both cov N={GP_N} new={GP_NEW} f64 [{card}]',
+                fns['predict both cov'])
 
 
 def drive(fn):

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ._config import default_device, default_dtype, resolve_device
-from .helpers import _float, cartesian, generator, partials
+from .helpers import _float, _generator, cartesian, partials
 from .kernels import RBF
 from .linalg import cholesky
 
@@ -38,7 +38,7 @@ def _two_generators(random_state, device):
     if isinstance(random_state, torch.Generator):
         return random_state, random_state
     seeds = np.random.SeedSequence(random_state).spawn(2)
-    return tuple(generator(int(s.generate_state(1, np.uint64)[0] >> np.uint64(1)),
+    return tuple(_generator(int(s.generate_state(1, np.uint64)[0] >> np.uint64(1)),
                            device) for s in seeds)
 
 
@@ -84,7 +84,7 @@ def make_gaussian_partial_sums(X, orders=5, kernel=None, mean=None, ratio=0.3,
     if allow_singular:
         K = K + 1e-10 * eye
 
-    gen = generator(random_state, K.device)
+    gen = _generator(random_state, K.device)
     L = cholesky(K)
     z = torch.randn((len(orders), K.shape[0]), generator=gen, dtype=K.dtype,
                     device=K.device)

@@ -52,17 +52,15 @@ def _scalar(n):
 
 
 def _pow_orders(x, orders):
-    """``x ** orders`` with ``orders`` along the last axis, where ``x``'s last
-    axis has length 1 or ``len(orders)``; a numpy ``orders`` is applied one
-    exponent at a time."""
-    if isinstance(orders, torch.Tensor):
-        return x ** orders.to(x.device)
+    """``x ** orders`` with ``orders`` (numpy integers) along the last axis,
+    where ``x``'s last axis has length 1 or ``len(orders)``, one exponent at a
+    time."""
     wide = x.shape[-1] > 1
     return torch.stack([x[..., i if wide else 0] ** _scalar(n)
                         for i, n in enumerate(orders)], dim=-1)
 
 
-def generator(rng, device):
+def _generator(rng, device):
     """A ``torch.Generator`` on ``device``: ``rng`` itself when it is one, else
     one seeded with the int ``rng`` (None draws a fresh seed)."""
     if isinstance(rng, torch.Generator):
@@ -100,10 +98,8 @@ def coefficients(y, ratio, ref=1, orders=None):
     y = as_input(y)
     if y.ndim != 2:
         raise ValueError('y must be 2d')
-    if orders is None:
-        orders = np.arange(y.shape[-1])
-    if not isinstance(orders, torch.Tensor):
-        orders = np.atleast_1d(np.asarray(orders))
+    orders = np.atleast_1d(np.arange(y.shape[-1]) if orders is None
+                           else np.asarray(orders))
     if orders.shape[0] != y.shape[-1]:
         raise ValueError('partials and orders must have the same length')
 
@@ -118,10 +114,8 @@ def partials(coeffs, ratio, ref=1, orders=None):
     R"""Partial sums :math:`y_k = y_{ref} \sum_{n=0}^k c_n Q^n` from
     coefficients; the inverse of :func:`coefficients`."""
     coeffs = as_input(coeffs)
-    if orders is None:
-        orders = np.arange(coeffs.shape[-1])
-    if not isinstance(orders, torch.Tensor):
-        orders = np.atleast_1d(np.asarray(orders))
+    orders = np.atleast_1d(np.arange(coeffs.shape[-1]) if orders is None
+                           else np.asarray(orders))
 
     ratio = torch.atleast_1d(_on(ratio, coeffs))
     if ratio.ndim == 1:
@@ -222,7 +216,7 @@ def generate_coefficients(X, size=1, basis=None, corr=None, beta=0, sd=1,
         basis_mat = basis(X)
     mean = basis_mat @ torch.atleast_1d(_on(beta, K).to(K.dtype))
 
-    gen = generator(0 if rng is None else rng, K.device)
+    gen = _generator(0 if rng is None else rng, K.device)
     L = cholesky(K)
     z = torch.randn((size, K.shape[0]), generator=gen, dtype=K.dtype,
                     device=K.device)

@@ -39,7 +39,7 @@ import torch
 
 from . import conjugate as _conj
 from ._config import as_input, device_constant, resolve_device, result_dtype
-from .helpers import coefficients, geometric_sum
+from .helpers import _generator, coefficients, geometric_sum
 from .kernels import RBF, ConstantKernel
 from .linalg import (cholesky, eigh_sqrt, logdet_sqrt, robust_cho_solve,
                      robust_cholesky, solve_sqrt, spd_logdet)
@@ -569,14 +569,7 @@ class BaseConjugateProcess:
         used as given) and a jittered Cholesky factor, so they differ from
         the JAX package's at equal seeds; the distribution is the same.
         """
-        if isinstance(random_state, torch.Generator):
-            gen = random_state
-        else:
-            gen = torch.Generator(device=self.device)
-            if random_state is None:
-                gen.seed()
-            else:
-                gen.manual_seed(int(random_state))
+        gen = _generator(random_state, self.device)
         if underlying:
             y_mean, y_cov = self.underlying_properties(X=X, return_cov=True)
         else:
@@ -834,8 +827,11 @@ class TruncationProcess:
     def __init__(self, kernel=None, ratio=0.5, ref=1, excluded=None,
                  ratio_kws=None, **kwargs):
         self.coeffs_process = BaseConjugateProcess(kernel=kernel, **kwargs)
-        self.device = self.coeffs_process.device
-        ones = self._ones
+        self.device = device = self.coeffs_process.device
+
+        def ones(X):
+            return torch.ones(X.shape[0], dtype=torch.float64, device=device)
+
         if not callable(ref):
             self.ref = lambda X, ref=ref: ref * ones(X)
         else:
@@ -846,8 +842,6 @@ class TruncationProcess:
             self.ratio = ratio
 
         self.kernel = kernel
-        self._log_like = None
-
         self.excluded = excluded
         self.ratio_kws = {} if ratio_kws is None else ratio_kws
 
@@ -859,9 +853,6 @@ class TruncationProcess:
         self.dy_ = None
         self.dderivs_ = None
         self.coeffs_ = None
-
-    def _ones(self, X):
-        return torch.ones(X.shape[0], dtype=torch.float64, device=self.device)
 
     def _points(self, X):
         return self.coeffs_process._points(X)
@@ -1110,10 +1101,8 @@ class TruncationTP(TruncationProcess):
 
         var = self.coeffs_process.cov_factor_
         disp = self.coeffs_process.disp_
-        p = disp.shape[0]
-        basis_lower = torch.zeros((X.shape[0], p), dtype=disp.dtype,
-                                  device=disp.device)
-        basis_trunc = basis_lower
+        basis_lower = basis_trunc = torch.zeros(
+            (X.shape[0], disp.shape[0]), dtype=disp.dtype, device=disp.device)
 
         if kind in ('both', 'interp'):
             K_no = self.cov(X=X, Xp=Xc, start=0, end=order)

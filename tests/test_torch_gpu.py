@@ -344,12 +344,13 @@ def test_truncation_models_on_the_card_match_the_cpu(cuda, name, priors):
     """N=60 points in the unit square, 5 orders (ratio 0.5, ref 10): fit on
     the card, then the same model on the CPU at the card's fitted kernel.
     The lml and its gradient at the start θ and at ``ratio=0.45`` within
-    1e-10 (the gradient by its largest entry); 'trunc', whose posterior
-    dispersion and center solve with the coefficients' correlation matrix R
-    (its fitted white noise is small), within cond(R)·ε, at least 1e-10;
+    1e-10 (the gradient by its largest entry); 'trunc' within 1e-10;
     'interp' and 'both', which solve with the noise-free K_oo, within cond·ε
     of its jittered condition number, at the same jitter rung on both
-    devices."""
+    devices.  Errors are relative to the largest entry of each output, and
+    a mean's to the band's scale too (its largest std): TruncationTP's
+    'trunc' mean is 2e-4 against a std of 1.1, the remainder of a
+    cancellation in the posterior center."""
     rng = np.random.RandomState(0)
     X = rng.rand(60, 2)
     c = np.sin(3 * X[:, :1] + np.arange(5)) + 0.01 * rng.randn(60, 5)
@@ -375,17 +376,16 @@ def test_truncation_models_on_the_card_match_the_cpu(cuda, name, priors):
         assert (g_g.cpu() - g_c).abs().max() <= 1e-10 * g_c.abs().max()
     rungs = [_rung_and_cond(m.cov(X, X, start=0, end=3)) for m in (card, cpu)]
     assert rungs[0][0] == rungs[1][0], rungs
-    eps = np.finfo(float).eps
-    tol = max(1e-10, rungs[0][1] * eps)
-    R = cpu.coeffs_process.corr_ + cpu.coeffs_process.nugget * torch.eye(60)
-    tol_trunc = max(1e-10, torch.linalg.cond(R).item() * eps)
+    tol = max(1e-10, rungs[0][1] * np.finfo(float).eps)
     for kind in ('both', 'interp', 'trunc'):
+        limit = 1e-10 if kind == 'trunc' else tol
+        band = cpu.predict(Xnew, order=3, kind=kind, return_std=True)[1].max()
         for ret in ('std', 'cov'):
             got, want = (m.predict(Xnew, order=3, kind=kind,
                                    **{'return_' + ret: True})
                          for m in (card, cpu))
-            for g, w in zip(got, want):
+            for i, (g, w) in enumerate(zip(got, want)):
                 assert g.device.type == 'cuda'
-                limit = tol_trunc if kind == 'trunc' else tol
-                assert (g.cpu() - w).abs().max() <= limit * max(
-                    w.abs().max(), 1e-300), (kind, ret, limit)
+                scale = max(w.abs().max(), band) if i == 0 else w.abs().max()
+                assert (g.cpu() - w).abs().max() <= limit * scale, \
+                    (kind, ret, i, limit)
