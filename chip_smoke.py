@@ -14,7 +14,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      call, K exactly symmetric;
    - ``fused_blocked_cholesky`` (K3) and an f64 factor at (2, 1024) and
      (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
-4. drives the six paths once each, with every kernel's launch count set
+   - the incomplete-beta kernels ``ops.incbeta.betainc`` and ``betaincinv``
+     at (4096, 5), f64 and f32, on the t quantile's arguments (a = df/2,
+     b = 1/2) and the beta bands' (a, b up to about 4000);
+4. drives the seven paths once each, with every kernel's launch count set
    to 0 just before and read just after:
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
@@ -43,6 +46,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      θ, lml less the change of variables) and against the same calls on the
      CPU, with the jitter ladder's rung on each device and the
      interpolant's limit derived from its condition number;
+   - the model-checking slice on path 5's data and models (path 6):
+     ``TruncationPointwise`` at N=4096, orders 0–4, two priors (fit,
+     intervals, the next order's logpdf, the log likelihood at 1500 ratios
+     with the posterior's median and HPD, ``credible_diagnostic`` with beta
+     and binomial bands at 20 dobs); ``Diagnostic`` at 1024 validation
+     points for both truncation models' coefficient processes (samples,
+     every error kind, md², coverage, KL); ``VariogramFourthRoot`` at 192
+     points (the per-bin branch) and 64 (the batched one); against the same
+     calls on the CPU (a subset where the CPU would take minutes: two of
+     the 20 dobs, one beta band, the three smallest variogram bins);
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -58,8 +71,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    blocked autograd routes' forward + backward, and profiles one lml +
    gradient and one forward + backward of ``blocked_spd_solve_logdet``;
 8. times the truncation models' second fit, lml + gradient and each
-   ``predict`` kind, profiles one 'both' prediction of each, and prints the
-   script's wall time.
+   ``predict`` kind, profiles one 'both' prediction of each;
+9. times the incomplete-beta kernels against their plain versions, with
+   their bounds from the continued-fraction terms they took, and path 6's
+   calls, profiles one pointwise interval, and prints the script's wall
+   time.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -97,6 +113,16 @@ KERNELS = {
                                'gsum_tpu/ops/fusedchol.py:147'),
     'rbf_covariance_pallas': ('gsum_tpu_torch/csrc/rbf_cov.cu',
                               'gsum_tpu/ops/pallas_cov.py:27'),
+    # the port's own: no Pallas kernel stands behind these
+    'incbeta.betainc': (
+        'gsum_tpu_torch/csrc/incbeta.cu',
+        "not a Pallas kernel: XLA's betainc (jax._src.lax.special."
+        'regularized_incomplete_beta_impl), taken by gsum_tpu/stats/'
+        '__init__.py:24'),
+    'incbeta.betaincinv': (
+        'gsum_tpu_torch/csrc/incbeta.cu',
+        "not a Pallas kernel: gsum_tpu/stats/_special.py:33 with XLA's "
+        'betainc inside'),
 }
 
 
@@ -109,11 +135,12 @@ def flops_chol_logpdf(B, N, d, m):
     return cov + chol + solve
 
 
-def bound(nbytes, flops):
-    """Least time in ms on the card for this many bytes moved and f32
-    operations done, and which of the two bounds it."""
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+    """Least time in ms on the card for this many bytes moved and
+    operations done (f32 ones unless ``flop_rate`` says otherwise), and
+    which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -304,6 +331,75 @@ def check_fused(device):
                              f'kernel: {ok}')
 
 
+INCBETA_SHAPE = (4096, 5)
+INCBETA_DF = (1.0, 3.0, 5.0, 30.0, 6.0)   # t quantiles; 6 = path 6's ν
+INCBETA_TOL = {torch.float64: {'betainc': 1e-13, 'betaincinv': 1e-11},
+               torch.float32: {'betainc': 1e-5, 'betaincinv': 1e-5}}
+CF_FLOPS = 20      # floating-point operations per continued-fraction term
+
+
+def incbeta_inputs(which, dtype, device):
+    """(a, b, u) at INCBETA_SHAPE: ``'t'``, the t quantile's a = df/2 per
+    column (df in INCBETA_DF) and b = 1/2; ``'beta'``, the beta bands' a =
+    N s + 1, b = N - N s + 1 at N = 4096 for s uniform in (0, 1).  u is
+    uniform in (0, 1): x of betainc, p of betaincinv."""
+    gen = torch.Generator(device='cpu').manual_seed(6)
+    u = torch.rand(INCBETA_SHAPE, generator=gen, dtype=torch.float64)
+    if which == 't':
+        a = torch.tensor(INCBETA_DF, dtype=torch.float64).expand(
+            INCBETA_SHAPE) / 2
+        b = torch.full(INCBETA_SHAPE, 0.5, dtype=torch.float64)
+    else:
+        s = torch.rand(INCBETA_SHAPE, generator=gen, dtype=torch.float64)
+        a, b = 4096 * s + 1, 4096 - 4096 * s + 1
+    return [v.to(device=device, dtype=dtype).contiguous() for v in (a, b, u)]
+
+
+def incbeta_err(got, want):
+    """Largest |got - want| / max(|want|, tiny), and the largest absolute
+    difference (NaN where exactly one of the two is NaN)."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return float('nan'), float('nan')
+    ok = ~torch.isnan(want)
+    d = (got[ok].double() - want[ok].double()).abs()
+    floor = torch.finfo(want.dtype).tiny
+    rel = (d / want[ok].double().abs().clamp(min=floor)).max().item()
+    return rel, d.max().item()
+
+
+def check_incbeta(device):
+    """The incomplete-beta kernels against their plain versions on the card
+    at INCBETA_SHAPE, f64 and f32, on the t quantile's and the beta bands'
+    arguments; one launch a call.  Returns the largest absolute differences
+    in f64 by kernel."""
+    from gsum_tpu_torch.ops import incbeta
+    from gsum_tpu_torch.stats._special import betainc_plain, betaincinv_plain
+
+    plain = {'betainc': betainc_plain, 'betaincinv': betaincinv_plain}
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        for which in ('t', 'beta'):
+            a, b, u = incbeta_inputs(which, dtype, device)
+            for name, fn in plain.items():
+                kernel = getattr(incbeta, name)
+                before = kernel.launches
+                got = kernel(a, b, u)
+                torch.cuda.synchronize()
+                launched = kernel.launches - before
+                rel, ab = incbeta_err(got, fn(a, b, u))
+                tol = INCBETA_TOL[dtype][name]
+                print(f'incbeta.{name} {which} {tuple(a.shape)} {dtype}: '
+                      f'max rel diff vs plain {rel:.3e} (limit {tol:g}), '
+                      f'max abs diff {ab:.3e}, launches {launched}, '
+                      f'finite {torch.isfinite(got).all().item()}')
+                if launched != 1 or not rel <= tol:
+                    raise AssertionError(f'incbeta.{name} disagrees with its '
+                                         f'plain version ({which}, {dtype})')
+                if dtype == torch.float64:
+                    worst[name] = max(worst.get(name, 0.0), ab)
+    return worst
+
+
 def reference_logpdf(X, y):
     """Plain f64 pipeline, independent of the port: covariance from direct
     distances, torch.linalg.cholesky, triangular solve."""
@@ -329,7 +425,7 @@ def rel_err(a, ref, band=0.0):
     (element-wise ratios blow up where a curve crosses zero); a predicted
     mean against its band's scale too (``band``, the largest std), since a
     mean near 0 is the remainder of a cancellation."""
-    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    a, ref = (torch.as_tensor(v).detach().double().cpu() for v in (a, ref))
     scale = max(ref.abs().max().item(), float(band))
     # an all-zero result (the unconstrained truncation mean at center 0)
     # is held absolutely
@@ -863,12 +959,457 @@ def time_truncation(out, card, device='cuda'):
                 fns['predict both cov'])
 
 
+PW_PRIORS = {'df=1, scale=1': dict(df=1, scale=1),
+             'df=0, excluded=[0]': dict(df=0, excluded=[0])}
+PW_ALPHA = np.array([0.68, 0.95])
+PW_RATIOS = np.linspace(0.3, 0.7, 1500)   # the Λ_b example's evaluations
+PW_DOBS = np.linspace(0.05, 0.95, 20)
+PW_BANDS = [0.68, 0.95]
+PW_CPU_DOBS = [0, 10]                     # the dobs the CPU side repeats
+PW_TOL = 1e-10
+DIAG_STRIDE, DIAG_SAMPLES = 4, 4000
+VARIO_BOUNDS = np.linspace(0.1, 0.9, 9)   # 10 bins of pair distance
+VARIO_POINTS = (192, 64)                  # per-bin branch, batched branch
+VARIO_CPU_BINS = 3                        # the smallest bins, on the CPU
+INCBETA_TIMED = {'betainc': 'incbeta.betainc',
+                 'betaincinv': 'incbeta.betaincinv'}
+F64_FLOP_PER_S = 34e12                    # f64 outside the tensor cores
+
+
+def pointwise_calls(device, y, y_next, dobs=None, band_dobs=None,
+                    beta_band=True):
+    """Path 6's calls of ``TruncationPointwise`` on ``device``: for each
+    prior, fit on the partial sums y (ratio 0.5, ref 10), the intervals at
+    PW_ALPHA, the logpdf of the next order's partial sums, the log
+    likelihood at each of PW_RATIOS (the class's own loop) and the median
+    and 68% HPD of that posterior; for the first prior
+    ``credible_diagnostic`` of the order-4 partial sums at ``dobs`` with
+    binomial and (``beta_band``) beta bands."""
+    import gsum_tpu_torch as gt
+
+    out = {}
+    for name, prior in PW_PRIORS.items():
+        m = gt.TruncationPointwise(device=device, **prior).fit(
+            y, TRUNC_RATIO, TRUNC_REF)
+        out[name] = m
+        out[name, 'interval'] = m.interval(PW_ALPHA)
+        out[name, 'logpdf'] = m.logpdf(y_next[:, None])
+        ll = torch.stack([m.log_likelihood(ratio=r) for r in PW_RATIOS])
+        post = torch.exp(ll - ll.max())
+        post = post / torch.trapezoid(post, torch.tensor(PW_RATIOS,
+                                                         device=device))
+        out[name, 'loglike'] = ll
+        out[name, 'hpd_pdf'] = gt.hpd_pdf(post, 0.68, PW_RATIOS)
+        out[name, 'median_pdf'] = gt.median_pdf(post, PW_RATIOS)
+    m = out['df=1, scale=1']
+    data = y[:, -1]
+    dobs = PW_DOBS if dobs is None else dobs
+    band_dobs = dobs if band_dobs is None else band_dobs
+    out['binom'] = m.credible_diagnostic(data, dobs, PW_BANDS, band_dobs,
+                                         beta=False)
+    if beta_band:
+        out['beta'] = m.credible_diagnostic(data, dobs, PW_BANDS, band_dobs)
+    return out
+
+
+def diagnostic_calls(mean, cov, df, y, device):
+    """Path 6's calls of ``Diagnostic`` on ``device``: construction (with the
+    pivoted Cholesky and eigh), samples, every error kind, the squared
+    Mahalanobis distance, the coverage at PW_DOBS, and the KL divergence
+    from (mean, cov)."""
+    from gsum_tpu_torch import Diagnostic
+
+    d = Diagnostic(mean, cov, df=df, device=device)
+    out = {'diag': d, 'samples': d.samples(DIAG_SAMPLES)}
+    for name in ('individual_errors', 'cholesky_errors',
+                 'pivoted_cholesky_errors', 'eigen_errors', 'md_squared'):
+        out[name] = getattr(d, name)(y)
+    out['coverage'] = d.credible_interval(y, PW_DOBS)
+    return out
+
+
+def vario_calls(X, c, device):
+    """VariogramFourthRoot of the 5 coefficient curves at VARIO_POINTS
+    points (10 bins): its bands, and which branch ``compute`` took."""
+    from gsum_tpu_torch.helpers import VariogramFourthRoot
+
+    out = {}
+    for n in VARIO_POINTS:
+        v = VariogramFourthRoot(X[:n], c[:n].mT, VARIO_BOUNDS, device=device)
+        idx, _ = v._bin_pair_indices()
+        out[n] = (v, v.compute(), v.Nb * idx.shape[1] ** 2 * v.Ncurves > 3e7)
+    return out
+
+
+def whitened_err(got, want, md2, eigvals=None):
+    """Card against CPU for whitened errors that are a square root's choice:
+    each curve's sum of squares is the squared Mahalanobis distance md2;
+    with ``eigvals``, the rows (eigen errors) whose eigenvalue stands apart
+    (gap >= 1e-3 of the largest) too, up to their sign, their error scaled
+    by gap / largest eigenvalue (an eigenvector's condition)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    errs = [rel_err(torch.sum(got ** 2, 0), md2)]
+    if eigvals is not None:
+        e = eigvals.double().cpu()
+        gaps = torch.stack([torch.min(torch.abs(torch.cat([e[:i], e[i + 1:]])
+                                                - e[i]))
+                            for i in range(len(e))]) / e[0]
+        apart = torch.nonzero(gaps >= 1e-3).flatten().tolist()
+        signs = torch.sign(torch.sum(got * want, 1, keepdim=True))
+        scale = want.abs().max().item()
+        for i in apart:
+            errs.append((signs[i] * got[i] - want[i]).abs().max().item()
+                        / scale * gaps[i].item())
+    return max(errs)
+
+
+def model_checking_path(trunc, card, device='cuda'):
+    """Path 6: the pointwise truncation model at N=4096, orders 0–4, two
+    priors; Diagnostic at 1024 validation points (every fourth of path 5's
+    X) for path 5's fitted TruncationGP and TruncationTP coefficient
+    processes; VariogramFourthRoot of the 5 curves at 192 points (the
+    per-bin branch) and 64 points (the batched branch).  Checked against the
+    same calls on the CPU.  Returns the launch counts."""
+    t_path = time.perf_counter()
+    X, c, y, _, _ = trunc_data(device)
+    x0, x1 = X[:, 0], X[:, 1]
+    c_next = np.sin(3 * x0 + GP_CURVES) * np.cos(2 * x1)
+    y_next = y[:, -1] + TRUNC_REF * TRUNC_RATIO ** GP_CURVES * torch.tensor(
+        c_next, device=device)
+    Xv = X[::DIAG_STRIDE]
+    cv = c[::DIAG_STRIDE]
+    moments = {}
+    for name in TRUNC_PRIORS:
+        cp = trunc[name].coeffs_process
+        moments[name] = (cp.mean(Xv), cp.cov(Xv),
+                         None if name == 'TruncationGP' else cp.df_)
+    events = {k: (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+              for k in ('pointwise', 'diagnostic', 'variogram')}
+
+    def run():
+        out = {}
+        a, b = events['pointwise']
+        a.record()
+        out['pointwise'] = pointwise_calls(device, y, y_next)
+        b.record()
+        a, b = events['diagnostic']
+        a.record()
+        for name, (mean, cov, df) in moments.items():
+            out[name] = diagnostic_calls(mean, cov, df, cv, device)
+        b.record()
+        a, b = events['variogram']
+        a.record()
+        out['variogram'] = vario_calls(X, c, device)
+        b.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, counts = drive(run)
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'main path (model checking): N={GP_N} orders={GP_CURVES}, '
+          f'Diagnostic at {len(Xv)} points, variogram at {VARIO_POINTS} '
+          f'points: launches {counts}, peak memory {peak_gib:.2f} GiB, wall '
+          f'{wall:.2f} s (' + ', '.join(
+              f'{k} {a.elapsed_time(b):.1f} ms' for k, (a, b) in
+              events.items()) + ')')
+    if not (counts['incbeta.betainc'] and counts['incbeta.betaincinv']):
+        raise AssertionError(f'path 6 did not launch both incbeta kernels: '
+                             f'{counts}')
+    errs, limits = {}, {}
+
+    # the pointwise model, card against CPU
+    pw = out['pointwise']
+    y_c, y_next_c = y.cpu(), y_next.cpu()
+    cpu = pointwise_calls('cpu', y_c, y_next_c,
+                          dobs=PW_DOBS[PW_CPU_DOBS],
+                          band_dobs=PW_DOBS[PW_CPU_DOBS[:1]],
+                          beta_band=False)
+    step = PW_RATIOS[1] - PW_RATIOS[0]
+    for name in PW_PRIORS:
+        for key in ('interval', 'logpdf', 'loglike', 'median_pdf',
+                    'hpd_pdf'):
+            errs['pointwise', name, key] = rel_err(pw[name, key],
+                                                     cpu[name, key])
+            limits['pointwise', name, key] = PW_TOL
+        # the median and HPD are grid points chosen from a posterior that
+        # agrees to 1e-10: a choice may move by one grid step
+        for key in ('median_pdf', 'hpd_pdf'):
+            limits['pointwise', name, key] = step / PW_RATIOS.max() + PW_TOL
+        errs['pointwise', name, 'scale_'] = rel_err(pw[name].scale_,
+                                                      cpu[name].scale_)
+        limits['pointwise', name, 'scale_'] = PW_TOL
+    d_g, b_g = pw['binom']
+    d_c, b_c = cpu['binom']
+    errs['pointwise', 'coverage at dobs ' + str(PW_CPU_DOBS)] = rel_err(
+        d_g[PW_CPU_DOBS], d_c)
+    errs['pointwise', 'binomial band'] = rel_err(b_g[..., :1], b_c)
+    limits['pointwise', 'coverage at dobs ' + str(PW_CPU_DOBS)] = 1e-15
+    limits['pointwise', 'binomial band'] = 0.0
+    d_b, b_b = pw['beta']
+    # one beta band on the CPU: hpd of Beta(N s + 1, N - N s + 1) at the
+    # first dob, held at what fmin's stopping rule allows (length 2e-8,
+    # ends 1e-4 / pdf(end))
+    from scipy import stats as sst
+
+    from gsum_tpu_torch import helpers, stats
+    s = PW_DOBS[0]
+    t_hpd = time.perf_counter()
+    band_c = helpers.hpd(stats.beta, 0.68, GP_N * s + 1, GP_N - GP_N * s + 1,
+                         device='cpu')
+    t_hpd = time.perf_counter() - t_hpd
+    band_g = b_b[0, :, 0]
+    pdf = sst.beta(GP_N * s + 1, GP_N - GP_N * s + 1).pdf(band_c)
+    hpd_ends = float(np.max(np.abs(band_g - band_c) * pdf))
+    hpd_len = abs((band_g[1] - band_g[0]) - (band_c[1] - band_c[0]))
+    beta_vs_binom = float(np.max(np.abs(b_b - b_g))) * GP_N
+    print(f'main path (model checking): beta band (0.68, dob {s:.2f}) card '
+          f'{band_g.tolist()} CPU {band_c.tolist()}: length diff '
+          f'{hpd_len:.3e} (limit 2e-8), ends diff × pdf {hpd_ends:.3e} (limit '
+          f'1e-4); CPU hpd {t_hpd:.2f} s; beta vs binomial bands on the card: '
+          f'max diff {beta_vs_binom:.3f} / N (limit 2 / N); coverage at the '
+          f'20 dobs {d_b[:, -1].tolist()}')
+    if not (hpd_len <= 2e-8 and hpd_ends <= 1e-4 and beta_vs_binom <= 2
+            and torch.equal(d_b, d_g)
+            and bool(((d_g >= 0) & (d_g <= 1)).all())):
+        raise AssertionError('the beta bands disagree')
+    for name in PW_PRIORS:
+        iv = pw[name, 'interval']
+        orders = GP_CURVES - len(PW_PRIORS[name].get('excluded', []))
+        if iv.shape != (2, 2, GP_N, orders) or not torch.isfinite(iv).all():
+            raise AssertionError(f'bad intervals {tuple(iv.shape)}')
+        hp = pw[name, 'hpd_pdf']
+        print(f'main path (model checking): pointwise {name}: ν = '
+              f'{pw[name].df_}, posterior of the ratio over '
+              f'{len(PW_RATIOS)} values: median '
+              f'{pw[name, "median_pdf"].item():.4f}, 68% HPD '
+              f'{hp.tolist()}')
+
+    # Diagnostic, card against CPU
+    for name in TRUNC_PRIORS:
+        m = trunc[name]
+        cpu_m = trunc_model(name, 'cpu',
+                            kernel=m.coeffs_process.kernel_.clone(),
+                            optimizer=None).fit(X, y_c, orders=np.arange(
+                                GP_CURVES))
+        mean_c = cpu_m.coeffs_process.mean(Xv)
+        cov_c = cpu_m.coeffs_process.cov(Xv)
+        mean_g, cov_g, df = moments[name]
+        delta = rel_err(cov_g, cov_c)
+        cond = torch.linalg.cond(cov_c).item()
+        tol = cond * (delta + 10 * torch.finfo(torch.float64).eps)
+        dg = out[name]
+        dc = diagnostic_calls(mean_c, cov_c, df, cv.cpu(), 'cpu')
+        kl_g = dg['diag'].kl(mean_c.to(device), cov_c.to(device))
+        kl_c = dc['diag'].kl(mean_c, cov_c)
+        md2 = dc['md_squared']
+        for key in ('individual_errors', 'cholesky_errors', 'md_squared'):
+            errs[name, key] = rel_err(dg[key], dc[key])
+            limits[name, key] = tol
+        same_piv = torch.equal(dg['diag']._piv.cpu(), dc['diag']._piv)
+        if same_piv:
+            errs[name, 'pivoted (same pivots)'] = rel_err(
+                dg['pivoted_cholesky_errors'], dc['pivoted_cholesky_errors'])
+            limits[name, 'pivoted (same pivots)'] = tol
+        errs[name, 'pivoted: Σ squares vs md²'] = whitened_err(
+            dg['pivoted_cholesky_errors'], dc['pivoted_cholesky_errors'], md2)
+        errs[name, 'eigen (invariants, rows apart)'] = whitened_err(
+            dg['eigen_errors'], dc['eigen_errors'], md2,
+            dc['diag']._eig_vals)
+        for key in ('pivoted: Σ squares vs md²',
+                    'eigen (invariants, rows apart)'):
+            limits[name, key] = tol
+        # coverage: a point within tol·σ of an interval's end may count on
+        # one device and not the other; allow exactly those
+        lo, hi = dc['diag'].udist.interval(
+            torch.atleast_2d(torch.tensor(PW_DOBS)).mT)
+        sd = dc['diag'].sd
+        yv = cv.cpu().double().mT[:, None, :]
+        near = ((yv - lo).abs() <= tol * sd) | ((yv - hi).abs() <= tol * sd)
+        allowed = near.sum(-1).max().item() / len(Xv)
+        errs[name, 'coverage'] = (dg['coverage'].cpu() - dc['coverage']
+                                  ).abs().max().item()
+        limits[name, 'coverage'] = allowed + 1e-15
+        errs[name, 'kl (abs, per dimension)'] = abs(kl_g.item()
+                                                    - kl_c.item()) / len(Xv)
+        limits[name, 'kl (abs, per dimension)'] = tol
+        smp = dg['samples']
+        sd_ref = torch.sqrt(torch.diag(cov_g) * (1 if df is None
+                                                 else df / (df - 2)))
+        z = ((smp.mean(1) - mean_g).abs() / (sd_ref / DIAG_SAMPLES ** 0.5))
+        print(f'main path (model checking): Diagnostic {name} at {len(Xv)} '
+              f'points: cond(cov) {cond:.3e}, card vs CPU cov {delta:.3e}, '
+              f'limit cond·(δ + 10 eps) {tol:.3e}, pivots equal {same_piv}, '
+              f'samples {tuple(smp.shape)} max |mean − m|/(σ/√n) '
+              f'{z.max().item():.2f} (limit 5), kl card {kl_g.item():.3e} '
+              f'CPU {kl_c.item():.3e}')
+        if not (smp.shape == (len(Xv), DIAG_SAMPLES) and z.max().item() <= 5):
+            raise AssertionError(f'{name}: bad reference samples')
+        del cpu_m, dc
+
+    # the variogram
+    vg = out['variogram']
+    for n in VARIO_POINTS:
+        v, (gam, lower, upper), per_bin = vg[n]
+        if per_bin != (n == VARIO_POINTS[0]):
+            raise AssertionError(f'variogram at {n} points took the wrong '
+                                 f'branch')
+        if n == VARIO_POINTS[0]:
+            # all bins by the batched formula on the card, and the smallest
+            # bins by the CPU's per-bin pass
+            from gsum_tpu_torch.helpers import _bin_var_batched
+            idx, msk = v._bin_pair_indices()
+            pi, pj, mk = v._index(v.pair_i[idx], v.pair_j[idx], msk)
+            var = _bin_var_batched(v.gamma_tilde_grid, pi, pj, mk,
+                                   v.corr_factor, v.var_factor)
+            sd_b = torch.sqrt(var).cpu().numpy()
+            sd_g = v.fourth_root_scale(upper) - v.gamma_star_mean
+            errs['variogram', f'{n} per-bin vs batched sd'] = rel_err(
+                sd_g, sd_b)
+            del var, pi, pj, mk
+            from gsum_tpu_torch.helpers import VariogramFourthRoot
+            vc = VariogramFourthRoot(X[:n], c[:n].mT.cpu(), VARIO_BOUNDS,
+                                     device='cpu')
+            small = np.argsort(v.bin_counts)[:VARIO_CPU_BINS]
+            sd_c = np.stack([np.sqrt(vc.cov(b)) for b in small])
+            errs['variogram', f'{n} bins {small.tolist()} vs CPU'] = \
+                rel_err(sd_g[small], sd_c)
+            limits['variogram', f'{n} bins {small.tolist()} vs CPU'] = 1e-12
+            limits['variogram', f'{n} per-bin vs batched sd'] = 1e-12
+            print(f'main path (model checking): variogram {n} points: pairs '
+                  f'per bin {v.bin_counts.tolist()}, per-bin branch (grid '
+                  f'{v.Nb} x {idx.shape[1]}² x {v.Ncurves} > 3e7)')
+        else:
+            vc = VariogramFourthRoot(X[:n], c[:n].mT.cpu(), VARIO_BOUNDS,
+                                     device='cpu')
+            for key, g, w in zip(('gamma', 'lower', 'upper'),
+                                 (gam, lower, upper), vc.compute()):
+                errs['variogram', f'{n} {key}'] = rel_err(g, w)
+                limits['variogram', f'{n} {key}'] = 1e-12
+    bad = [k for k, v in errs.items() if not v <= limits[k]]
+    print('main path (model checking): card vs CPU: ' + ', '.join(
+        f'{"/".join(map(str, k))} {v:.3e} (limit {limits[k]:.3e})'
+        for k, v in errs.items()))
+    if bad:
+        raise AssertionError(f'path 6 on the card disagrees with the CPU: '
+                             f'{bad}')
+    print(f'main path (model checking): wall time '
+          f'{time.perf_counter() - t_path:.1f} s (card and CPU)')
+    return out, counts
+
+
+def time_model_checking(out, card, kernels, counts, device='cuda'):
+    """Path 6's times on the card, and the incbeta kernels against their
+    plain versions at INCBETA_SHAPE (f64 and f32) with their bounds."""
+    from gsum_tpu_torch.ops import incbeta
+    from gsum_tpu_torch.stats._special import betainc_plain, betaincinv_plain
+
+    plain = {'betainc': betainc_plain, 'betaincinv': betaincinv_plain}
+    for dtype in (torch.float64, torch.float32):
+        a, b, u = incbeta_inputs('t', dtype, device)
+        for name, fn in plain.items():
+            kernel = getattr(incbeta, name)
+            got, terms = incbeta.cf_terms(kernel, a, b, u)
+            err = incbeta_err(got, fn(a, b, u))[1]
+            before = kernel.launches
+            t = time_ms({'kernel': lambda: kernel(a, b, u),
+                         'plain': lambda: fn(a, b, u)}, rounds=2)
+            t_back = time_ms({'kernel': lambda: kernel(a, b, u)}, reps=10,
+                             rounds=2)['kernel']
+            device_ms = kernel_device_ms(lambda: kernel(a, b, u))
+            rate = F64_FLOP_PER_S if dtype == torch.float64 else \
+                F32_FLOP_PER_S
+            n_terms = terms.sum().item()
+            bnd = bound(4 * a.numel() * a.element_size(),
+                        CF_FLOPS * n_terms, rate)
+            # a warp runs until its slowest lane is done
+            lanes = torch.nn.functional.pad(terms.flatten(),
+                                            (0, -terms.numel() % 32))
+            warp_terms = 32 * lanes.view(-1, 32).max(1).values.sum().item()
+            print(f'timing [{card}] incbeta.{name} t {tuple(a.shape)} '
+                  f'{dtype}: kernel {device_ms:.4f} ms a launch (ten queued '
+                  f'behind a spin kernel; CUDA events around one call '
+                  f'{t["kernel"]:.4f} ms, ten back to back {t_back:.4f} ms '
+                  f'each, the host launching), plain {t["plain"]:.3f} ms, continued-fraction '
+                  f'terms {n_terms} (mean {n_terms / a.numel():.1f}, most '
+                  f'{terms.max().item()} an element; the warps run '
+                  f'{warp_terms / n_terms:.2f}× the terms), bound '
+                  f'{bnd[0]:.5f} ms ({bnd[1]}, {CF_FLOPS} flops a term at '
+                  f'{rate / 1e12:g} TFLOP/s), max abs diff {err:.3e}; '
+                  f'launches in the timing {kernel.launches - before}')
+            if dtype == torch.float64:
+                kernels.append({
+                    'name': INCBETA_TIMED[name], 'route': 'cuda',
+                    'source': KERNELS[INCBETA_TIMED[name]][0],
+                    'replaces': KERNELS[INCBETA_TIMED[name]][1],
+                    'launches': counts[INCBETA_TIMED[name]],
+                    'max_abs_err': err, 'ms': device_ms,
+                    'plain_ms': t['plain'], 'bound_ms': bnd[0],
+                    'bound_by': bnd[1], 'library_ms': None})
+    # the path's own calls, on the card
+    import gsum_tpu_torch as gt
+    X, c, y, _, _ = trunc_data(device)
+    m = out['pointwise']['df=1, scale=1']
+    t = time_ms({
+        'fit': lambda: gt.TruncationPointwise(device=device).fit(
+            y, TRUNC_RATIO, TRUNC_REF),
+        'interval (2 alphas)': lambda: m.interval(PW_ALPHA),
+        'log_likelihood (one ratio)': lambda: m.log_likelihood(ratio=0.4),
+        'credible_diagnostic (20 dobs, no band)': lambda:
+            m.credible_diagnostic(y[:, -1], PW_DOBS),
+        'hpd of Beta(N s + 1, N - N s + 1), s = 0.5': lambda: gt.hpd(
+            gt.stats.beta, 0.68, GP_N * 0.5 + 1, GP_N * 0.5 + 1,
+            device=device),
+        'Diagnostic(mean, cov) at 1024': lambda: gt.Diagnostic(
+            *[out['TruncationGP']['diag'].mean,
+              out['TruncationGP']['diag'].cov]),
+        'md_squared at 1024': lambda: out['TruncationGP']['diag'].md_squared(
+            c[::DIAG_STRIDE]),
+        'samples(4000) at 1024': lambda: out['TruncationGP']['diag'].samples(
+            DIAG_SAMPLES),
+        'variogram compute, 192 points (per bin)': lambda:
+            out['variogram'][VARIO_POINTS[0]][0].compute(),
+        'variogram compute, 64 points (batched)': lambda:
+            out['variogram'][VARIO_POINTS[1]][0].compute()}, rounds=2)
+    before = incbeta.betaincinv.launches
+    gt.hpd(gt.stats.beta, 0.68, GP_N * 0.5 + 1, GP_N * 0.5 + 1,
+           device=device)
+    hpd_launches = incbeta.betaincinv.launches - before
+    print(f'timing [{card}] path 6 calls: ' + ', '.join(
+        f'{k} {v:.3f} ms' for k, v in t.items())
+        + f'; one hpd launches betaincinv {hpd_launches} times')
+    profile(f'pointwise interval N={GP_N} (2 alphas) [{card}]',
+            lambda: m.interval(PW_ALPHA))
+
+
+def kernel_device_ms(fn, calls=10):
+    """Device time in ms of one call of ``fn``: CUDA events around
+    ``calls`` calls queued behind a spin kernel, so that the card runs them
+    back to back however long the host takes to launch them (a short
+    kernel's event time is otherwise its wrapper's host time)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)       # ~0.1 s: the queue fills behind it
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
 def drive(fn):
     """Runs ``fn`` once with every kernel's launch count set to 0 just
     before; returns its result and the counts read just after."""
+    import operator
+
     from gsum_tpu_torch import ops
 
-    counters = {name: getattr(ops, name) for name in KERNELS}
+    counters = {name: operator.attrgetter(name)(ops) for name in KERNELS}
     for f in counters.values():
         f.launches = 0
     torch.cuda.synchronize()
@@ -938,6 +1479,7 @@ def main():
     check_kernel(rng, device)
     check_rbf(device)
     check_fused(device)
+    check_incbeta(device)
     print('kernel checks passed')
 
     rng = np.random.RandomState(0)   # bench.py's inputs
@@ -1116,9 +1658,13 @@ def main():
     trunc = truncation_path(gp, card)
     del gp
     time_truncation(trunc, card)
+    # path 6: the model-checking slice on path 5's models and data
+    checked, counts = model_checking_path(trunc, card)
     del trunc
+    time_model_checking(checked, card, kernels, counts)
+    del checked
     print(f'timing [{card}] peak memory of the script '
-          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB since path 5 '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB since path 6 '
           f'began; wall time of the whole script '
           f'{time.perf_counter() - t_script:.1f} s')
 

@@ -17,13 +17,43 @@ differentiable blocked functions ``ops.batched_blocked_cholesky`` and
 Student-t process ``models.ConjugateStudentProcess`` and the truncation
 models ``models.TruncationGP`` / ``TruncationTP``, with the series algebra
 and toy-data generators of ``helpers`` and the partial-sum generators of
-``datasets``.  ``convert.to_torch`` moves the JAX package's inputs (numpy
+``datasets``; the statistics ``stats`` (norm, t, χ², F, beta, binomial,
+multivariate normal and t) with the regularized incomplete beta function
+and its inverse as CUDA kernels (``csrc/incbeta.cu``, ``ops.incbeta``), the
+pointwise truncation model ``models.TruncationPointwise``, the numerical
+``diagnostics.Diagnostic``, and the rest of ``helpers`` (``predictions``,
+the HPD intervals, ``kl_gauss``, the decorators, ``VariogramFourthRoot``).
+``convert.to_torch`` moves the JAX package's inputs (numpy
 arrays and scalars) onto a device, ``convert.to_torch_kernel`` its kernels
 and ``convert.to_torch_model`` its models.
 """
-from . import (conjugate, convert, datasets, entry, helpers, kernels, linalg,
-               models, ops, optimize)
+from . import (conjugate, convert, datasets, diagnostics, entry, helpers,
+               kernels, linalg, models, ops, optimize, stats)
 from ._config import default_device, default_dtype, resolve_device
+from .diagnostics import Diagnostic
+from .helpers import (
+    VariogramFourthRoot,
+    cartesian,
+    cholesky_errors,
+    coefficients,
+    default_attributes,
+    gaussian,
+    generate_coefficients,
+    geometric_sum,
+    hpd,
+    hpd_pdf,
+    kl_gauss,
+    lazy,
+    lazy_property,
+    mahalanobis,
+    median_pdf,
+    partials,
+    pivoted_cholesky,
+    predictions,
+    rbf,
+    stabilize,
+    toy_data,
+)
 from .kernels import (
     RBF,
     ConstantKernel,
@@ -42,14 +72,21 @@ from .models import (
     ConjugateStudentProcess,
     TruncationGP,
     TruncationProcess,
+    TruncationPointwise,
     TruncationTP,
 )
 
-__all__ = ['conjugate', 'convert', 'datasets', 'entry', 'helpers', 'kernels',
-           'linalg', 'models', 'ops', 'optimize', 'default_device',
+__all__ = ['conjugate', 'convert', 'datasets', 'diagnostics', 'entry',
+           'helpers', 'kernels', 'linalg', 'models', 'ops', 'optimize',
+           'stats', 'default_device',
            'default_dtype', 'resolve_device', 'ConstantKernel', 'WhiteKernel',
            'RBF', 'Matern', 'RationalQuadratic', 'ExpSineSquared',
            'DotProduct', 'Sum', 'Product', 'Exponentiation',
            'BaseConjugateProcess', 'ConjugateGaussianProcess',
            'ConjugateStudentProcess', 'TruncationProcess', 'TruncationGP',
-           'TruncationTP']
+           'TruncationTP', 'TruncationPointwise', 'Diagnostic',
+           'cartesian', 'toy_data', 'generate_coefficients', 'coefficients',
+           'partials', 'predictions', 'stabilize', 'gaussian', 'hpd',
+           'hpd_pdf', 'median_pdf', 'kl_gauss', 'rbf', 'default_attributes',
+           'cholesky_errors', 'mahalanobis', 'lazy_property', 'lazy',
+           'VariogramFourthRoot', 'geometric_sum', 'pivoted_cholesky']

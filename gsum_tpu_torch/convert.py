@@ -115,9 +115,15 @@ def _conjugate_settings(m, needs):
 
 def to_torch_model(m, device, **overrides):
     """The port's twin of ``m``, a ``gsum_tpu`` ``ConjugateGaussianProcess``,
-    ``ConjugateStudentProcess``, ``TruncationGP`` or ``TruncationTP``.
+    ``ConjugateStudentProcess``, ``TruncationGP``, ``TruncationTP`` or
+    ``TruncationPointwise``.
 
-    It carries ``m``'s constructor settings (priors, nugget, optimizer and
+    A ``TruncationPointwise`` has no weights: it is rebuilt from its prior
+    (``df0``, ``scale0``, ``excluded``) and, when ``m`` is fitted, refitted
+    on ``m``'s ``y_``, ``ratio_``, ``ref_`` and ``orders_``, so the result is
+    fitted where ``m`` is.
+
+    Any other model carries ``m``'s constructor settings (priors, nugget, optimizer and
     restarts, decomposition, Cholesky engine, and for a truncation model
     ``ratio``, ``ref``, ``excluded`` and ``ratio_kws``) and its kernel
     through :func:`to_torch_kernel`: the fitted ``kernel_`` with
@@ -131,6 +137,8 @@ def to_torch_model(m, device, **overrides):
     from . import models
 
     name = type(m).__name__
+    if name == 'TruncationPointwise':
+        return _pointwise(m, resolve_device(device), overrides)
     needs = []
     if name in _CONJUGATE:
         kw = _conjugate_settings(m, needs)
@@ -149,3 +157,17 @@ def to_torch_model(m, device, **overrides):
                          'torch twin as a keyword')
     kw.update(overrides)
     return getattr(models, name)(device=resolve_device(device), **kw)
+
+
+def _pointwise(m, device, overrides):
+    """The port's ``TruncationPointwise`` equal to ``m`` (see
+    :func:`to_torch_model`)."""
+    from .models import TruncationPointwise
+
+    kw = dict(df=m.df0, scale=m.scale0, excluded=m.excluded)
+    kw.update(overrides)
+    tp = TruncationPointwise(device=device, **kw)
+    if getattr(m, '_fit', False):
+        y, ratio, ref = to_torch((m.y_, m.ratio_, m.ref_), device)
+        tp.fit(y, ratio, ref, orders=np.asarray(m.orders_))
+    return tp

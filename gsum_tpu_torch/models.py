@@ -24,11 +24,14 @@ Devices and dtypes: a model lives on ``device`` (the CUDA card unless
 there and cast to the promoted dtype of themselves and float64, as JAX's
 x64 promotion gives, so an f32 ``X`` gives f64 results.
 
+``TruncationPointwise`` is the pointwise (uncorrelated) truncation model:
+conjugate iid coefficients and a Student-t truncation error per point, on
+``stats.t``; its ``credible_diagnostic`` draws reference bands from
+``stats.beta`` (through ``helpers.hpd``) or ``stats.binom``.
+
 Not ported yet: derivative observations (``fit`` / ``predict`` with a
 non-zero ``dorders``, ``TruncationProcess.fit(dderivs=...)``), which need
-``derivs`` (ROADMAP.md queue A, model checking), and
-``TruncationPointwise``, which needs ``stats`` (queue A, the statistics
-slice).
+``derivs`` (ROADMAP.md queue A, model checking).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch
 
 from . import conjugate as _conj
 from ._config import as_input, device_constant, resolve_device, result_dtype
-from .helpers import _generator, coefficients, geometric_sum
+from .helpers import _generator, _on, coefficients, geometric_sum, hpd
 from .kernels import RBF, ConstantKernel
 from .linalg import (cholesky, eigh_sqrt, logdet_sqrt, robust_cho_solve,
                      robust_cholesky, solve_sqrt, spd_logdet)
@@ -50,7 +53,7 @@ _LOG_2PI = math.log(2 * math.pi)
 
 __all__ = ['BaseConjugateProcess', 'ConjugateGaussianProcess',
            'ConjugateStudentProcess', 'TruncationProcess', 'TruncationGP',
-           'TruncationTP', 'ConvergenceWarning']
+           'TruncationTP', 'TruncationPointwise', 'ConvergenceWarning']
 
 
 def _default_basis(X):
@@ -1127,3 +1130,199 @@ class TruncationTP(TruncationProcess):
             return mean, second + torch.sqrt(torch.clamp(torch.diag(mean_cov),
                                                          min=0.0))
         return mean, second + mean_cov
+
+
+class TruncationPointwise:
+    R"""Pointwise (uncorrelated) truncation-error model of Furnstahl et al.
+    (2015).
+
+    iid Gaussian coefficients with a scaled-inverse-χ² conjugate prior on
+    their common variance c̄²; the truncation error is Student-t at each
+    point.
+
+    Parameters
+    ----------
+    df : float >= 0 — prior degrees of freedom ν₀
+    scale : float > 0, or one per point — prior scale τ₀
+    excluded : int or array, optional — orders excluded everywhere
+    device : where the model computes; the CUDA card by default (refused
+        where no card is visible)
+    """
+
+    # fitted attributes (the trailing underscore marks the public fitted
+    # surface; set by fit(), None before)
+    _FITTED_ATTRS = ('y_', 'ratio_', 'ref_', 'orders_', 'orders_mask_',
+                     '_orders_masked', 'coeffs_', 'coeffs_dist_', 'df_',
+                     'scale_', 'y_masked_', 'dist_')
+
+    def __init__(self, df=1, scale=1, excluded=None, device='cuda'):
+        self.df0, self.scale0, self.excluded = df, scale, excluded
+        self.device = resolve_device(device)
+        self._fit = False
+        for name in self._FITTED_ATTRS:
+            setattr(self, name, None)
+
+    def _tensor(self, a):
+        a = as_input(a, device=self.device).to(self.device)
+        return a.to(result_dtype(a.dtype))
+
+    @staticmethod
+    def _posterior_nu_tau(c, df0, scale0):
+        """Conjugate scaled-inverse-χ² update of (ν, τ) from the masked
+        coefficient table c (N, m): ν = ν₀ + m and ν τ² = ν₀ τ₀² + Σ_n c_n²
+        (Melendez et al. 2019, Eq. 26)."""
+        nu = df0 + c.shape[-1]
+        prior = _on(df0 * np.asarray(scale0, dtype=float) ** 2, c)
+        tau = torch.sqrt((prior + torch.sum(c * c, dim=-1)) / nu)
+        return nu, tau
+
+    def _compute_order_indices(self, orders):
+        if orders is None:
+            return slice(None)
+        fitted = np.asarray(self._orders_masked)
+        idx = np.squeeze([np.nonzero(fitted == k)
+                          for k in np.atleast_1d(orders)])
+        return int(idx) if idx.ndim == 0 else torch.as_tensor(idx)
+
+    def fit(self, y, ratio, ref=1, orders=None):
+        """Conjugate update of (ν, τ) and the pointwise Student-t truncation
+        distribution."""
+        from .stats import t as t_dist
+
+        y = self._tensor(y)
+        if y.ndim == 1:
+            y = y[:, None]
+        ratio = torch.atleast_1d(self._tensor(ratio))
+        ref = torch.atleast_1d(self._tensor(ref))
+
+        self.y_ = y
+        self.ratio_ = ratio
+        self.ref_ = ref
+
+        if orders is None:
+            orders = np.arange(y.shape[-1])
+        orders = np.asarray(orders)
+        if y.shape[-1] != orders.size:
+            raise ValueError('The last dimension of `y` must have the same '
+                             'size as `orders`')
+
+        self.orders_ = orders
+        self.orders_mask_ = orders_mask = ~np.isin(orders, self.excluded)
+        self.coeffs_ = _columns(coefficients(y=y, ratio=ratio, ref=ref,
+                                             orders=orders), orders_mask)
+        self.df_, self.scale_ = self._posterior_nu_tau(
+            self.coeffs_, self.df0, self.scale0)
+
+        self.y_masked_ = _columns(y, orders_mask)
+        self._orders_masked = orders_masked = orders[orders_mask]
+        ratio_sums = torch.stack(
+            [geometric_sum(ratio ** 2, int(k) + 1, np.inf,
+                           excluded=self.excluded)
+             for k in orders_masked]).mT
+        trunc_scale = ref[:, None] * torch.sqrt(ratio_sums) \
+            * self.scale_[:, None]
+        self.coeffs_dist_ = t_dist(self.df_, loc=0, scale=self.scale_)
+        self.dist_ = t_dist(self.df_, loc=self.y_masked_, scale=trunc_scale)
+        self._fit = True
+        return self
+
+    def interval(self, alpha, orders=None):
+        R"""Credible intervals of the truncation distribution, shape
+        ``(2, [n_alpha,] n_points, n_orders)``."""
+        alpha = self._tensor(alpha)
+        if alpha.ndim == 1:
+            alpha = alpha[:, None, None]
+        interval = torch.stack(self.dist_.interval(alpha))
+        return interval[..., self._compute_order_indices(orders)]
+
+    def _points3(self, y):
+        y = torch.atleast_1d(self._tensor(y))
+        return y[:, None, None] if y.ndim == 1 else y
+
+    def pdf(self, y, orders=None):
+        idx = self._compute_order_indices(orders)
+        return self.dist_.pdf(self._points3(y))[..., idx]
+
+    def logpdf(self, y, orders=None):
+        idx = self._compute_order_indices(orders)
+        return self.dist_.logpdf(self._points3(y))[..., idx]
+
+    def std(self):
+        return self.dist_.std()
+
+    def log_likelihood(self, ratio=None, ref=None):
+        R"""Evidence for (ratio, ref) with the change-of-variables factor.
+
+        The scale-invariant prior ν₀ = 0 drops its (infinite) normalization.
+        The normalizers of the prior (ν₀, τ₀, host numbers) and of ν are
+        host float64; the rest is on the model's device.
+        """
+        from scipy.special import gammaln
+
+        if not self._fit:
+            raise ValueError('Must call fit before calling log_likelihood')
+        if ratio is None:
+            ratio = self.ratio_
+        if ref is None:
+            ref = self.ref_
+        ratio = torch.atleast_1d(self._tensor(ratio))
+        ref = torch.atleast_1d(self._tensor(ref))
+
+        y, orders, mask = self.y_, self.orders_, self.orders_mask_
+        coeffs = _columns(coefficients(y=y, ratio=ratio, ref=ref,
+                                       orders=orders), mask)
+        df0, scale0 = self.df0, self.scale0
+        nu, tau = self._posterior_nu_tau(coeffs, df0, scale0)
+
+        n = coeffs.shape[-1]
+        log_like = float(gammaln(nu / 2.)) - 0.5 * n * _LOG_2PI
+        if df0 > 0:  # the scale-invariant prior df0 = 0 drops this
+            # scale0 may be per point: its terms are summed
+            log_like += 0.5 * float(np.sum(
+                df0 * np.log(df0 * np.asarray(scale0) ** 2 / 2.))) \
+                - float(gammaln(df0 / 2.))
+        log_like = log_like - 0.5 * torch.sum(nu * torch.log(nu * tau ** 2
+                                                              / 2.))
+        return log_like - torch.sum(torch.log(torch.abs(ref))
+                                    + np.sum(orders[mask]) * torch.log(ratio))
+
+    def credible_diagnostic(self, data, dobs, band_intervals=None,
+                            band_dobs=None, beta=True):
+        """Empirical credible-interval coverage, with reference bands from
+        the beta distribution (``beta=True``: HPD intervals of
+        Beta(N s + 1, N - N s + 1) for each band dob s) or the binomial
+        (intervals of Binomial(N, s) / N)."""
+        from . import stats as gstats
+
+        dist = self.dist_
+        dobs = torch.atleast_1d(self._tensor(dobs))
+        data = self._tensor(data)
+        if data.ndim == 1:
+            data = data[:, None]
+        lower, upper = dist.interval(dobs[:, None, None])
+        indicator = (lower < data) & (data < upper)
+        D_CI = torch.mean(indicator.to(lower.dtype), dim=1)
+
+        if band_intervals is not None:
+            if band_dobs is None:
+                band_dobs = dobs.cpu().numpy()
+            band_dobs = np.atleast_1d(np.asarray(band_dobs))
+
+            N = self.y_.shape[0]
+            if beta:
+                band_intervals = np.atleast_1d(band_intervals)
+                bands = np.zeros((len(band_intervals), 2, len(band_dobs)))
+                for i, p in enumerate(band_intervals):
+                    bands[i] = np.array(
+                        [hpd(gstats.beta, p, N * s + 1, N - N * s + 1,
+                             device=self.device)
+                         for s in band_dobs]).T
+            else:
+                band_dist = gstats.binom(n=N, p=band_dobs,
+                                         device=self.device)
+                band_intervals = np.atleast_2d(band_intervals)
+                lo, hi = band_dist.interval(band_intervals.T)
+                bands = torch.stack([lo, hi]).cpu().numpy() / N
+                bands = np.transpose(bands, [1, 0, 2])
+            return D_CI, bands
+        return D_CI

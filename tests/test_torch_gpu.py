@@ -2,9 +2,11 @@
 diagonal-block factor and inverse, the single-kernel blocked Cholesky and
 the tiled RBF covariance build; the differentiable blocked functions in f32
 through the diagonal kernel, their gradients against an f64
-``torch.linalg`` autograd reference; and the conjugate GP's lml and gradient
-on the card against the CPU.  Marked ``gpu``: every test skips where there
-is no CUDA card.
+``torch.linalg`` autograd reference; the conjugate GP's lml and gradient
+on the card against the CPU; the incomplete-beta kernels against their plain
+versions, and the t quantile, ``TruncationPointwise`` and ``Diagnostic`` on
+the card against the CPU.  Marked ``gpu``: every test skips where there is
+no CUDA card.
 
 The file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q``.
@@ -389,3 +391,114 @@ def test_truncation_models_on_the_card_match_the_cpu(cuda, name, priors):
                 scale = max(w.abs().max(), band) if i == 0 else w.abs().max()
                 assert (g.cpu() - w).abs().max() <= limit * scale, \
                     (kind, ret, i, limit)
+
+
+# --- the incomplete-beta kernels and the model-checking slice --------------
+INCBETA_TOL = {torch.float64: {'betainc': 1e-13, 'betaincinv': 1e-11},
+               torch.float32: {'betainc': 1e-5, 'betaincinv': 1e-5}}
+
+
+def _incbeta_args(name, dtype, device, n=2048, seed=0):
+    """a, b from 0.5 to about 4000 (the t quantile's df/2 and 1/2, the beta
+    bands' N s + 1) and u uniform in (0, 1), then the edge values: XLA's
+    (a = 0, b = inf, b = 0, NaN, negative, x at 0 and 1) for betainc, p at
+    0, 1, outside [0, 1] and NaN for betaincinv."""
+    rng = np.random.RandomState(seed)
+    a = np.concatenate([rng.choice([0.5, 1.5, 2.5, 15.0], n),
+                        1 + 4096 * rng.rand(n)])
+    b = np.concatenate([np.full(n, 0.5), 4097 - a[n:]])
+    u = rng.rand(2 * n)
+    if name == 'betainc':
+        edges = ([0.0, 2.0, np.inf, 2.0, np.nan, -1.0, 2.0, 2.0],
+                 [3.0, np.inf, 3.0, 0.0, 3.0, 3.0, 3.0, 3.0],
+                 [0.5, 0.5, 0.5, 1.0, 0.5, 0.5, 0.0, 1.0])
+    else:
+        edges = ([2.0] * 5, [3.0] * 5, [0.0, 1.0, -0.1, 1.5, np.nan])
+    a, b, u = (np.concatenate([v, e]) for v, e in zip((a, b, u), edges))
+    return [torch.tensor(v, dtype=dtype, device=device) for v in (a, b, u)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('name', ['betainc', 'betaincinv'])
+def test_incbeta_kernel_matches_plain(cuda, name, dtype):
+    """One launch; relative difference from the plain version on the card
+    at most 1e-13 (betainc) and 1e-11 (betaincinv) in f64, 1e-5 in f32
+    (tiny as the floor of the denominator), NaN where it is NaN."""
+    from gsum_tpu_torch.ops import incbeta
+    from gsum_tpu_torch.stats import _special
+
+    a, b, u = _incbeta_args(name, dtype, cuda)
+    kernel = getattr(incbeta, name)
+    before = kernel.launches
+    got = kernel(a, b, u)
+    want = getattr(_special, name + '_plain')(a, b, u)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    rel = ((got[ok] - want[ok]).abs()
+           / want[ok].abs().clamp(min=torch.finfo(dtype).tiny)).max().item()
+    assert rel <= INCBETA_TOL[dtype][name], rel
+
+
+def test_incbeta_refuses_what_it_does_not_take(cuda):
+    from gsum_tpu_torch.ops import incbeta
+
+    a, b, u = _incbeta_args('betainc', torch.float64, cuda, n=4)
+    with pytest.raises(ValueError):
+        incbeta.betainc(a, b[:-1], u[:-1])
+    with pytest.raises(ValueError):
+        incbeta.betainc(a.float(), b, u)
+    with pytest.raises(ValueError):
+        incbeta.betainc(a[::2], b[::2], u[::2])
+    assert incbeta.betainc(a[:0], b[:0], u[:0]).shape == (0,)
+
+
+def test_t_ppf_on_the_card(cuda):
+    """stats.t quantiles on the card against the CPU, relative 1e-10 with a
+    floor of 1e-10 of the scale (quantiles near loc)."""
+    from gsum_tpu_torch import stats
+
+    q = np.linspace(0.005, 0.995, 199)
+    for df in (1.0, 3.0, 6.0, np.array([2.5, 30.0])[:, None]):
+        got = stats.t(df, 0.5, 1.3, device=cuda).ppf(q)
+        want = stats.t(df, 0.5, 1.3, device='cpu').ppf(q)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-10, atol=1.3e-10)
+
+
+def test_pointwise_interval_on_the_card(cuda):
+    """TruncationPointwise on the card against the CPU: the fitted scale,
+    the intervals (two priors) and the log likelihood at relative 1e-10."""
+    rng = np.random.RandomState(2)
+    y = np.cumsum(rng.randn(300, 5), axis=1)
+    for prior in ({'df': 1, 'scale': 1}, {'df': 0, 'excluded': [0]}):
+        tg = gt.TruncationPointwise(device=cuda, **prior).fit(y, 0.5, 10)
+        tc = gt.TruncationPointwise(device='cpu', **prior).fit(y, 0.5, 10)
+        alpha = np.array([0.68, 0.95])
+        np.testing.assert_allclose(tg.interval(alpha).cpu().numpy(),
+                                   tc.interval(alpha).numpy(), rtol=1e-10)
+        np.testing.assert_allclose(tg.log_likelihood(0.4).item(),
+                                   tc.log_likelihood(0.4).item(), rtol=1e-10)
+
+
+def test_diagnostic_md_squared_on_the_card(cuda):
+    """Diagnostic.md_squared and the credible-interval coverage of a
+    Student-t reference on the card against the CPU: cond(cov)·1e-14
+    relative for the distances (two Cholesky solves), equal coverage."""
+    rng = np.random.RandomState(4)
+    n = 200
+    Q = np.linalg.qr(rng.randn(n, n))[0]
+    cov = (Q * np.geomspace(1.0, 1e-3, n)) @ Q.T
+    mean = rng.randn(n)
+    y = mean[:, None] + np.linalg.cholesky(cov) @ rng.randn(n, 4)
+    for df in (None, 5.0):
+        dg = gt.Diagnostic(mean, cov, df=df, device=cuda)
+        dc = gt.Diagnostic(mean, cov, df=df, device='cpu')
+        np.testing.assert_allclose(dg.md_squared(y).cpu().numpy(),
+                                   dc.md_squared(y).numpy(),
+                                   rtol=np.linalg.cond(cov) * 1e-14)
+        dobs = np.linspace(0.1, 0.9, 5)
+        np.testing.assert_allclose(
+            dg.credible_interval(y, dobs).cpu().numpy(),
+            dc.credible_interval(y, dobs).numpy(), rtol=1e-15)
