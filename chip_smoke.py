@@ -17,7 +17,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    - the incomplete-beta kernels ``ops.incbeta.betainc`` and ``betaincinv``
      at (4096, 5), f64 and f32, on the t quantile's arguments (a = df/2,
      b = 1/2) and the beta bands' (a, b up to about 4000);
-4. drives the seven paths once each, with every kernel's launch count set
+4. drives the eight paths once each, with every kernel's launch count set
    to 0 just before and read just after:
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
@@ -56,6 +56,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      points (the per-bin branch) and 64 (the batched one); against the same
      calls on the CPU (a subset where the CPU would take minutes: two of
      the 20 dobs, one beta band, the three smallest variogram bins);
+   - batched throughput (path 7), at the widths of
+     ``benchmarks/scale_tpu.py``'s legs 1-3 and ``bench.py``'s grid lml:
+     A, ``parallel.batched_fit`` of 10,240 curves at N=128 f64 (and
+     ``precision='mixed'`` on the first chunk); B, 8 fits at N=4096 f32
+     through the blocked engine (K1 in every forward; its launches against
+     the count derived from the code), the scalar engine and the blocked
+     engine with 3xTF32 GEMMs (``mxu_precision='high'``), each fit's lml
+     against the f64 single model at its θ; C, ``batched_lml_grid`` over 10,240 θ
+     at N=512, d=2 (the scan engine); D, the grid lml at N=256, G=512, f32
+     and f64; E, ``truncation_lml_grid`` (100 θ × 80 ratios, gp and tp) on
+     path 5's partial sums at N=256, against the truncation models' lml;
+     F, ``pointwise_evidence_grid`` at 1500 ratios on path 6's data,
+     against path 6's loop; G, ``batched_posterior_at`` and
+     ``batched_predict``; each leg's time (CUDA events) and peak memory,
+     and a subset of each leg against the CPU, with limits from the
+     condition numbers;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -65,8 +81,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    computes both of its outputs (context, not its ``library_ms``); beside
    K2 also ``fill_`` of the same memory, the practical rate of writing it,
    and K2 in f64 (context too);
-6. profiles each headline pipeline once with ``torch.profiler``: device
-   time by kernel and the device's idle share;
+6. profiles each headline pipeline once with ``torch.profiler`` (the
+   blocked route also with ``precision='high'``): device time by kernel
+   and the device's idle share;
 7. times the single model's fit, lml + gradient and predict, and the
    blocked autograd routes' forward + backward, and profiles one lml +
    gradient and one forward + backward of ``blocked_spd_solve_logdet``;
@@ -74,8 +91,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    ``predict`` kind, profiles one 'both' prediction of each;
 9. times the incomplete-beta kernels against their plain versions, with
    their bounds from the continued-fraction terms they took, and path 6's
-   calls, profiles one pointwise interval, and prints the script's wall
-   time.
+   calls, profiles one pointwise interval;
+10. times the blocked route with 3xTF32 GEMMs (``precision='high'``)
+    beside it and reports its logpdf error against the f64 reference at
+    the headline's nugget and two larger ones; profiles one line search
+    of path 7's leg B; prints the script's wall time.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -400,14 +420,14 @@ def check_incbeta(device):
     return worst
 
 
-def reference_logpdf(X, y):
+def reference_logpdf(X, y, noise=NOISE):
     """Plain f64 pipeline, independent of the port: covariance from direct
     distances, torch.linalg.cholesky, triangular solve."""
     X, y = X.double(), y.double()
     d2 = torch.cdist(X / LS, X / LS).square_()
     K = AMP * torch.exp(-0.5 * d2)
     del d2
-    K.diagonal(dim1=-2, dim2=-1).add_(NOISE)
+    K.diagonal(dim1=-2, dim2=-1).add_(noise)
     L = torch.linalg.cholesky(K)
     del K
     w = torch.linalg.solve_triangular(L, y, upper=False)
@@ -416,8 +436,12 @@ def reference_logpdf(X, y):
                    + X.shape[-2] * math.log(2 * math.pi))
 
 
-def max_rel(a, b):
-    return ((a.double() - b.double()).abs() / b.double().abs()).max().item()
+def max_rel(a, ref):
+    """The largest element-wise |a − ref| / |ref|, on the host in f64 (NaN
+    where either is NaN)."""
+    a, ref = (torch.as_tensor(t).double().cpu().reshape(-1)
+              for t in (a, ref))
+    return ((a - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
 
 
 def rel_err(a, ref, band=0.0):
@@ -1384,6 +1408,433 @@ def time_model_checking(out, card, kernels, counts, device='cuda'):
             lambda: m.interval(PW_ALPHA))
 
 
+# path 7: batched throughput, at the widths of benchmarks/scale_tpu.py's
+# legs 1-3 (A-C), bench.py's bench_grid_lml (D) and paths 5-6's data (E-G)
+FIT_B, FIT_N, FIT_MAXITER, FIT_CHUNK = 10240, 128, 12, 2048        # leg A
+WIDE_B, WIDE_N, WIDE_MAXITER, WIDE_NUGGET = 8, 4096, 6, 1e-2       # leg B
+WIDE_RUNS = {'auto (blocked, K1)': dict(engine='auto', ls_steps=10, chunk=4),
+             'scalar': dict(engine='scalar', ls_steps=5, chunk=1),
+             'auto, mxu_precision=high (3xTF32)': dict(
+                 engine='auto', ls_steps=10, chunk=4, mxu_precision='high')}
+WIDE_TOL = 1e-3        # an f32 fit's lml vs the f64 single model at its θ
+GRID_G, GRID_N, GRID_CHUNK = 10240, 512, 1024                       # leg C
+BGRID_N, BGRID_G = 256, 512                                         # leg D
+TGRID_STRIDE, TGRID_T, TGRID_R = 16, 100, 80                        # leg E
+TGRID_PRIORS = {'gp': dict(center=0, disp=0, df=3, scale=1),
+                'tp': dict(center=0, disp=0, df=5, scale=1)}
+TGRID_POINTS = ((0, 0), (37, 11), (70, 50), (99, 79))
+POST_B, POST_NEW = 128, 32                                          # leg G
+ENGINE_NS, ENGINE_B, ENGINE_MAXITER = (192, 640, 1024, 2048), 8, 3  # leg H
+CPU_A, CPU_C, CPU_E, CPU_G = 8, 16, 4, 4     # the CPU's subset of each leg
+WELL_NUGGET = 1e-6     # leg A's θ again, card vs CPU, better conditioned
+
+
+def fit_kernel():
+    from gsum_tpu_torch import RBF
+
+    return RBF(0.5, (1e-2, 1e2))
+
+
+def scale_data():
+    """benchmarks/scale_tpu.py's data, drawn in its order from one
+    RandomState(0): leg 1, B curves sin(3x + 6.28u) + 0.1ε on N points of
+    [0, 1]; leg 2, N points in the unit square with sin 4x₀ cos 3x₁ +
+    0.05ε; leg 3, the leg-1 recipe at N=4096, B=8, in f32."""
+    rng = np.random.RandomState(0)
+    X1 = np.linspace(0.0, 1.0, FIT_N)[:, None]
+    y1 = (np.sin(3.0 * X1.T + rng.rand(FIT_B, 1) * 6.28)
+          + 0.1 * rng.randn(FIT_B, FIT_N))
+    X2 = rng.rand(GRID_N, 2)
+    y2 = np.sin(4 * X2[:, 0]) * np.cos(3 * X2[:, 1]) \
+        + 0.05 * rng.randn(GRID_N)
+    X3 = np.linspace(0.0, 1.0, WIDE_N)[:, None].astype(np.float32)
+    y3 = (np.sin(3.0 * X3.T + rng.rand(WIDE_B, 1) * 6.28)
+          + 0.1 * rng.randn(WIDE_B, WIDE_N)).astype(np.float32)
+    return (X1, y1), (X2, y2), (X3, y3)
+
+
+def k1_fit_launches(B, chunk, maxiter, N, block=128):
+    """K1's launches in a blocked-engine fit, from the code: each chunk
+    evaluates the objective forward once at its start and twice per
+    iteration (the line search, then the value and gradient at the step
+    taken); each forward factors its batch once, one launch per diagonal
+    block; the backward and the posterior state launch none."""
+    return -(-B // chunk) * (1 + 2 * maxiter) * -(-N // block)
+
+
+def timed(fn):
+    """(result, ms): ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def cond_of(kernel, thetas, X, nugget):
+    """Condition numbers of the nugget-included correlation matrices at each
+    θ row (on X's device)."""
+    out = []
+    for th in thetas:
+        R = kernel.value_fn(th, X, None)
+        ev = torch.linalg.eigvalsh(
+            R + nugget * torch.eye(R.shape[0], dtype=R.dtype,
+                                   device=R.device))
+        out.append((ev[-1] / ev[0].clamp_min(1e-300)).item())
+    return out
+
+
+def batched_legs(device, data, trunc_y, loglikes):
+    """Path 7's calls on ``device``: legs A-G.  Returns their results, each
+    leg's time (CUDA events) and peak memory, and K1's launches per leg."""
+    import gsum_tpu_torch as gt
+    from gsum_tpu_torch import ops
+    from gsum_tpu_torch.parallel import (batched_fit, batched_lml_grid,
+                                         batched_posterior_at,
+                                         batched_predict,
+                                         pointwise_evidence_grid,
+                                         truncation_lml_grid)
+
+    (X1, y1), (X2, y2), (X3, y3) = data
+    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    out, ms, peak, k1 = {}, {}, {}, {}
+
+    def leg(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.chol_inv_block.launches
+        out[name], ms[name] = timed(fn)
+        k1[name] = ops.chol_inv_block.launches - before
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    X1t, y1t = t(X1), t(y1)
+    leg('A', lambda: batched_fit(fit_kernel(), X1t, y1t, df=3, scale=1,
+                                 maxiter=FIT_MAXITER, chunk=FIT_CHUNK))
+    leg('A mixed, first chunk', lambda: batched_fit(
+        fit_kernel(), X1t, y1t[:FIT_CHUNK], df=3, scale=1,
+        maxiter=FIT_MAXITER, chunk=FIT_CHUNK, precision='mixed'))
+
+    X3t, y3t = t(X3), t(y3)
+    for run, kw in WIDE_RUNS.items():
+        leg('B ' + run, lambda kw=kw: batched_fit(
+            fit_kernel(), X3t, y3t, df=3, scale=1, maxiter=WIDE_MAXITER,
+            nugget=WIDE_NUGGET, **kw))
+
+    X2t, y2t = t(X2), t(y2)
+    thC = t(np.log(np.linspace(0.1, 2.0, GRID_G))[:, None])
+    leg('C', lambda: torch.cat([
+        batched_lml_grid(gt.RBF(0.5), X2t, y2t, thC[i:i + GRID_CHUNK], df=3,
+                         scale=1, nugget=1e-8)
+        for i in range(0, GRID_G, GRID_CHUNK)]))
+
+    Xd = t(np.linspace(0, 1, BGRID_N)[:, None])
+    yd = t(np.random.RandomState(2).randn(BGRID_N, 1))
+    thD = t(np.linspace(-2, 0.5, BGRID_G)[:, None])
+    for prec in ('f32', 'f64'):
+        leg(f'D {prec}', lambda prec=prec: batched_lml_grid(
+            gt.RBF(0.3, (1e-2, 1e2)), Xd, yd, thD, df=3.0, scale=1.0,
+            nugget=1e-4, engine='grid', precision=prec))
+
+    Xe = t(trunc_y[0][::TGRID_STRIDE])
+    ye = trunc_y[1][::TGRID_STRIDE].to(device)
+    thE = t(np.stack([np.log(np.linspace(0.05, 1.0, TGRID_T)),
+                      np.full(TGRID_T, np.log(1e-4))], 1))
+    ratE = t(np.linspace(0.3, 0.7, TGRID_R))
+    for process, prior in TGRID_PRIORS.items():
+        leg(f'E {process}', lambda process=process, prior=prior:
+            truncation_lml_grid(trunc_kernel(), Xe, ye,
+                                np.arange(GP_CURVES), ratE, thE,
+                                ref=TRUNC_REF, process=process, **prior))
+
+    yf = trunc_y[1].to(device)
+    ratF = t(PW_RATIOS)
+    for name, prior in PW_PRIORS.items():
+        leg(f'F {name}', lambda prior=prior: pointwise_evidence_grid(
+            yf, np.arange(GP_CURVES), ratF, ref=TRUNC_REF, **prior))
+
+    thG = out['A'].theta[:POST_B]
+    Xnew = t(np.linspace(0, 1, POST_NEW)[:, None])
+
+    def leg_g():
+        post = batched_posterior_at(fit_kernel(), X1t, y1t[0], thG, df=3,
+                                    scale=1)
+        yG = y1t[0].expand(POST_B, FIT_N)
+        preds = {(st, mode): batched_predict(
+            fit_kernel(), post, X1t, yG, Xnew, student=st, student_mode=mode)
+            for st in (False, True) for mode in ('class', 'variance')}
+        return post, preds
+    leg('G', leg_g)
+    return out, ms, peak, k1
+
+
+def engine_table(card, device):
+    """Leg H: the fit engines' times at the N where ``_auto_fit_engine``
+    switches (the JAX package's thresholds, measured on a TPU): B=8 f32
+    fits of the leg-3 recipe, maxiter 3, ls_steps 10, one chunk, each
+    engine at each N (the blocked one above 512 only); the choice of
+    'auto' beside them."""
+    from gsum_tpu_torch.parallel import batched_fit
+    from gsum_tpu_torch.parallel.batched import _auto_fit_engine
+
+    rng = np.random.RandomState(1)
+    for n in ENGINE_NS:
+        X = torch.tensor(np.linspace(0, 1, n)[:, None], dtype=torch.float32,
+                         device=device)
+        Y = torch.tensor(np.sin(3.0 * np.linspace(0, 1, n)[None]
+                                + rng.rand(ENGINE_B, 1) * 6.28)
+                         + 0.1 * rng.randn(ENGINE_B, n), dtype=torch.float32,
+                         device=device)
+        row = {}
+        for engine in ('grid', 'scan', 'scalar', 'blocked'):
+            if engine == 'blocked' and n <= 512:
+                continue
+            post, t_ms = timed(lambda: batched_fit(
+                fit_kernel(), X, Y, df=3, scale=1, nugget=WIDE_NUGGET,
+                maxiter=ENGINE_MAXITER, chunk=ENGINE_B, engine=engine))
+            if not torch.isfinite(post.lml).all():
+                raise AssertionError(f'leg H: {engine} at N={n} gave a '
+                                     f'non-finite lml')
+            row[engine] = t_ms
+        auto = {'unrolled': 'grid', 'scan': 'scan', 'blocked': 'blocked',
+                None: 'scalar'}[_auto_fit_engine(torch.float32, n, 'cuda')]
+        print(f'timing [{card}] path 7 leg H (fit engines, B={ENGINE_B} '
+              f'f32, maxiter {ENGINE_MAXITER}) N={n}: ' + ', '.join(
+                  f'{k} {v:.1f} ms' for k, v in row.items())
+              + f"; 'auto' picks {auto}, fastest {min(row, key=row.get)}")
+
+
+def trunc_kernel():
+    import gsum_tpu_torch as gt
+
+    return gt.RBF(0.3, (1e-2, 10)) + gt.WhiteKernel(1e-4, (1e-8, 1e-1))
+
+
+def batched_path(card, loglikes, device='cuda'):
+    """Path 7: batched throughput on the card (legs A-G), K1's launches
+    under the blocked fit engine against the count derived from the code,
+    each leg's time and peak memory, and the card against the port on the
+    CPU of this machine on a subset of each leg."""
+    import gsum_tpu_torch as gt
+    from gsum_tpu_torch.parallel import (batched_fit, batched_lml_grid,
+                                         batched_posterior_at,
+                                         batched_predict,
+                                         truncation_lml_grid)
+
+    t_path = time.perf_counter()
+    data = scale_data()
+    X, _, y, _, _ = trunc_data(device)
+    (out, ms, peak, k1), counts = drive(
+        lambda: batched_legs(device, data, (X, y), loglikes))
+    (X1, y1), (X2, y2), (X3, y3) = data
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    for name in ms:
+        print(f'timing [{card}] path 7 leg {name}: {ms[name]:.1f} ms, peak '
+              f'memory {peak[name]:.2f} GiB, K1 launches {k1[name]}')
+    print(f'main path (batched): launches {counts}')
+    want = k1_fit_launches(WIDE_B, 4, WIDE_MAXITER, WIDE_N)
+    for run, kw in WIDE_RUNS.items():
+        expect = want if kw['engine'] == 'auto' else 0
+        check(k1['B ' + run] == expect,
+              f'leg B {run}: {k1["B " + run]} K1 launches, expected {expect}')
+    check(counts['chol_inv_block'] == sum(k1.values()),
+          f'K1 launches outside the legs: {counts}')
+
+    # leg A: finite; fits per second; 'mixed' on the first chunk
+    pa = out['A']
+    check(bool(torch.isfinite(pa.lml).all()), 'leg A: non-finite lml')
+    d = (out['A mixed, first chunk'].lml - pa.lml[:FIT_CHUNK]).abs()
+    print(f'path 7 leg A: {FIT_B} fits at N={FIT_N} f64, maxiter '
+          f'{FIT_MAXITER}, chunk {FIT_CHUNK}: {FIT_B / ms["A"] * 1e3:.1f} '
+          f'fits/s; mixed vs f64 on the first chunk: lml max abs '
+          f'{d.max().item():.3e}, max rel '
+          f'{(d / pa.lml[:FIT_CHUNK].abs()).max().item():.3e}, '
+          f'{FIT_CHUNK / ms["A mixed, first chunk"] * 1e3:.1f} fits/s')
+
+    # leg B: each fit's lml against the f64 single model at its θ
+    X64 = torch.tensor(X3, dtype=torch.float64, device=device)
+    gp64 = gt.ConjugateGaussianProcess(fit_kernel(), df=3, scale=1,
+                                       nugget=WIDE_NUGGET, device=device)
+    for run in WIDE_RUNS:
+        post = out['B ' + run]
+        ref = torch.stack([gp64.log_marginal_likelihood(
+            post.theta[b].double(), X=X64, y=torch.tensor(
+                y3[b], dtype=torch.float64, device=device))
+            for b in range(WIDE_B)])
+        err = max_rel(post.lml, ref)
+        moved = (post.theta[:, 0] != math.log(0.5)).sum().item()
+        print(f'path 7 leg B {run}: θ (ℓ) {post.theta[:, 0].exp().tolist()}'
+              f', lml {post.lml.tolist()}, vs f64 single model at its θ max '
+              f'rel {err:.3e} (limit {WIDE_TOL:g}), fits that left the '
+              f'start {moved} of {WIDE_B}, '
+              f'{WIDE_B / ms["B " + run] * 1e3:.3f} fits/s')
+        check(err <= WIDE_TOL, f'leg B {run}: lml {err:.3e} from f64')
+
+    # legs C, D: finite, µs per evaluation
+    check(bool(torch.isfinite(out['C']).all()), 'leg C: non-finite lml')
+    print(f'path 7 leg C: G={GRID_G} N={GRID_N} d=2 f64 (scan engine), '
+          f'{ms["C"] / GRID_G * 1e3:.2f} µs per evaluation')
+    dd = max_rel(out['D f32'], out['D f64'])
+    print(f'path 7 leg D (bench_grid_lml N={BGRID_N} G={BGRID_G}): f32 '
+          f'{ms["D f32"] / BGRID_G * 1e3:.2f} µs, f64 '
+          f'{ms["D f64"] / BGRID_G * 1e3:.2f} µs per evaluation (first '
+          f'call, engine grid); f32 vs f64 max rel {dd:.3e}')
+    for prec in ('f32', 'f64'):
+        check(bool(torch.isfinite(out[f'D {prec}']).all()),
+              f'leg D {prec}: non-finite lml')
+
+    # leg E: four (θ, ratio) points against the truncation models
+    Xe = X[::TGRID_STRIDE]
+    ye = y[::TGRID_STRIDE]
+    thE = np.stack([np.log(np.linspace(0.05, 1.0, TGRID_T)),
+                    np.full(TGRID_T, np.log(1e-4))], 1)
+    ratE = np.linspace(0.3, 0.7, TGRID_R)
+    for process, prior in TGRID_PRIORS.items():
+        grid = out[f'E {process}']
+        cls = gt.TruncationGP if process == 'gp' else gt.TruncationTP
+        model = cls(trunc_kernel(), ratio=TRUNC_RATIO, ref=TRUNC_REF,
+                    device=device, **prior)
+        conds = cond_of(trunc_kernel(), torch.tensor(
+            thE[[i for i, _ in TGRID_POINTS]], device=device),
+            torch.tensor(Xe, device=device), 1e-10)
+        errs = []
+        for (i, j), cond in zip(TGRID_POINTS, conds):
+            ref = model.log_marginal_likelihood(
+                thE[i], X=Xe, y=ye, orders=np.arange(GP_CURVES),
+                ratio=float(ratE[j]))
+            errs.append(max_rel(grid[i, j], ref))
+            check(errs[-1] <= cond_tol(cond), f'leg E {process} ({i}, {j}): '
+                  f'{errs[-1]:.3e} from the model, limit '
+                  f'{cond_tol(cond):.3e}')
+        print(f'path 7 leg E {process}: ({TGRID_T}, {TGRID_R}) grid at '
+              f'N={len(Xe)} in {ms[f"E {process}"]:.1f} ms; at '
+              f'{TGRID_POINTS} vs {cls.__name__}.log_marginal_likelihood: '
+              f'rel {[f"{e:.3e}" for e in errs]}, condition numbers '
+              f'{[f"{c:.3g}" for c in conds]}')
+
+    # leg F: against path 6's loop of TruncationPointwise.log_likelihood.
+    # With a scalar ratio r the class (as gsum's reference) counts the
+    # change of variables once, log|ref| + S log r (S the sum of the orders
+    # kept); the grid broadcasts r to every point and counts it N times, as
+    # JAX's pointwise_evidence_grid does; the loop is shifted by the
+    # difference, (N − 1)(log|ref| + S log r)
+    logr = torch.log(torch.tensor(PW_RATIOS, device=device))
+    for name, prior in PW_PRIORS.items():
+        S = float(np.sum(np.setdiff1d(np.arange(GP_CURVES),
+                                      prior.get('excluded', []))))
+        shifted = loglikes[name].reshape(-1) - (GP_N - 1) * (
+            math.log(TRUNC_REF) + S * logr)
+        err = max_rel(out[f'F {name}'], shifted)
+        print(f'path 7 leg F {name}: {len(PW_RATIOS)} ratios at N={GP_N} in '
+              f'{ms[f"F {name}"]:.2f} ms; vs path 6 loop (shifted) max rel '
+              f'{err:.3e} (limit {PW_TOL:g})')
+        check(err <= PW_TOL, f'leg F {name}: {err:.3e} from the loop')
+
+    # the card against the port on the CPU, a subset of each leg
+    cpu = torch.device('cpu')
+    t0 = time.perf_counter()
+    X1c = torch.tensor(X1)
+    post_cpu = batched_fit(fit_kernel(), X1c, torch.tensor(y1[:CPU_A]), df=3,
+                           scale=1, maxiter=FIT_MAXITER, chunk=None)
+    conds = cond_of(fit_kernel(), post_cpu.theta, X1c, 1e-10)
+    dth = (pa.theta[:CPU_A].cpu() - post_cpu.theta).abs().max().item()
+    err = max_rel(pa.lml[:CPU_A], post_cpu.lml)
+    lim = cond_tol(max(conds))
+    print(f'path 7 card vs CPU, leg A ({CPU_A} fits): θ max abs {dth:.3e}, '
+          f'lml max rel {err:.3e} (limit {lim:.3e} from the largest '
+          f'condition number {max(conds):.3g})')
+    check(err <= lim, f'leg A: card vs CPU lml {err:.3e}')
+    # the same inputs on both: the card's θ, at the fits' nugget (whose
+    # cond·ε allows what two factorization orders differ by) and at a
+    # larger one, where a fault of the card's engine would show
+    thA = pa.theta[:CPU_A].cpu()
+    for nugget in (1e-10, WELL_NUGGET):
+        def at(dev):
+            return torch.stack([batched_lml_grid(
+                fit_kernel(), torch.tensor(X1, device=dev),
+                torch.tensor(y1[b], device=dev), thA[b:b + 1].to(dev),
+                df=3, scale=1, nugget=nugget)[0] for b in range(CPU_A)])
+        card_lml = pa.lml[:CPU_A] if nugget == 1e-10 else at(device)
+        err = max_rel(card_lml, at(cpu))
+        cond = max(cond_of(fit_kernel(), thA, X1c, nugget))
+        print(f'path 7 card vs CPU, leg A at the card\'s θ, nugget '
+              f'{nugget:g}: lml max rel {err:.3e} (limit '
+              f'{cond_tol(cond):.3e} from condition number {cond:.3g})')
+        check(err <= cond_tol(cond), f'leg A at the card\'s θ, nugget '
+              f'{nugget:g}: {err:.3e}')
+
+    X2c = torch.tensor(X2)
+    thC = np.log(np.linspace(0.1, 2.0, GRID_G))[:CPU_C, None]
+    valC = batched_lml_grid(gt.RBF(0.5), X2c, torch.tensor(y2),
+                            torch.tensor(thC), df=3, scale=1, nugget=1e-8)
+    lim = cond_tol(max(cond_of(gt.RBF(0.5), torch.tensor(thC), X2c, 1e-8)))
+    err = max_rel(out['C'][:CPU_C], valC)
+    print(f'path 7 card vs CPU, leg C ({CPU_C} θ): max rel {err:.3e} '
+          f'(limit {lim:.3e})')
+    check(err <= lim, f'leg C: card vs CPU {err:.3e}')
+
+    Xec = torch.tensor(Xe)
+    for process, prior in TGRID_PRIORS.items():
+        gc = truncation_lml_grid(trunc_kernel(), Xec, ye.cpu(),
+                                 np.arange(GP_CURVES),
+                                 torch.tensor(ratE[:CPU_E]),
+                                 torch.tensor(thE[:CPU_E]), ref=TRUNC_REF,
+                                 process=process, **prior)
+        lim = cond_tol(max(cond_of(trunc_kernel(), torch.tensor(
+            thE[:CPU_E]), Xec, 1e-10)))
+        err = max_rel(out[f'E {process}'][:CPU_E, :CPU_E], gc)
+        print(f'path 7 card vs CPU, leg E {process} ({CPU_E} × {CPU_E}): '
+              f'max rel {err:.3e} (limit {lim:.3e})')
+        check(err <= lim, f'leg E {process}: card vs CPU {err:.3e}')
+
+    post_g, preds = out['G']
+    thG = pa.theta[:CPU_G].cpu()
+    pc = batched_posterior_at(fit_kernel(), X1c, torch.tensor(y1[0]), thG,
+                              df=3, scale=1)
+    lim = cond_tol(max(cond_of(fit_kernel(), thG, X1c, 1e-10)))
+    err = max(max_rel(getattr(post_g, f)[:CPU_G], getattr(pc, f))
+              for f in ('lml', 'scale_sq', 'cov_factor'))
+    Xnew = torch.tensor(np.linspace(0, 1, POST_NEW)[:, None])
+    yG = torch.tensor(y1[0]).expand(CPU_G, FIT_N)
+    for (st, mode), (mean, std) in preds.items():
+        mc, sc = batched_predict(fit_kernel(), pc, X1c, yG, Xnew,
+                                 student=st, student_mode=mode)
+        scale = mc.abs().max().item()
+        err = max(err, (mean[:CPU_G].cpu() - mc).abs().max().item() / scale,
+                  (std[:CPU_G].cpu() - sc).abs().max().item()
+                  / sc.abs().max().item())
+    print(f'path 7 card vs CPU, leg G ({CPU_G} draws: lml, scale², '
+          f'cov factor, the four predictions): max rel {err:.3e} (limit '
+          f'{lim:.3e})')
+    check(err <= lim, f'leg G: card vs CPU {err:.3e}')
+    print(f'path 7 CPU side: {time.perf_counter() - t0:.1f} s')
+
+    engine_table(card, device)
+    profile(f'leg A objective, one line search ({FIT_CHUNK * 10} θ, '
+            f'N={FIT_N}, f64, grid engine) [{card}]',
+            lambda: batched_lml_grid(fit_kernel(), torch.tensor(
+                X1, device=device), torch.tensor(y1[0], device=device),
+                torch.log(torch.linspace(0.05, 1.0, FIT_CHUNK * 10,
+                                         device=device,
+                                         dtype=torch.float64))[:, None],
+                df=3, scale=1, engine='grid'))
+    X32, y32 = (torch.tensor(a, device=device) for a in (X3, y3[0]))
+    th40 = torch.log(torch.linspace(0.05, 1.0, 40, device=device))[:, None]
+    profile(f'leg B objective, one line search (40 θ, N={WIDE_N}, f32, '
+            f'blocked) [{card}]',
+            lambda: batched_lml_grid(fit_kernel(), X32, y32, th40, df=3,
+                                     scale=1, nugget=WIDE_NUGGET,
+                                     engine='blocked'))
+    print(f'path 7: wall {time.perf_counter() - t_path:.1f} s')
+    if problems:
+        raise AssertionError('path 7: ' + '; '.join(problems))
+
+
 def kernel_device_ms(fn, calls=10):
     """Device time in ms of one call of ``fn``: CUDA events around
     ``calls`` calls queued behind a spin kernel, so that the card runs them
@@ -1511,6 +1962,21 @@ def main():
         raise AssertionError('blocked route disagrees with its references')
     print(f'context: f32 torch.linalg.cholesky pipeline vs f64 reference '
           f'{max_rel(pipeline(method="xla")(), ref):.3e}')
+    # the 3xTF32 opt-in on the headline and at larger nuggets, measured
+    # against the limit
+    for noise in (NOISE, 1e-1, 1.0):
+        got = batched_chol_logpdf(X, y, LS, AMP, noise, precision='high')
+        rel_tf32 = max_rel(got, ref if noise == NOISE
+                           else reference_logpdf(X, y, noise))
+        print(f'3xTF32 opt-in (blocked route, precision=high) at nugget '
+              f'{noise:g} vs f64 reference: max rel {rel_tf32:.3e}, '
+              f'non-finite logpdfs {(~torch.isfinite(got)).sum().item()} of '
+              f'{got.numel()}, limit {REL_TOL:g}: '
+              f'{"within" if rel_tf32 <= REL_TOL else "OUTSIDE"} the limit')
+    print(f'allow_tf32 after the calls '
+          f'{torch.backends.cuda.matmul.allow_tf32}')
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('precision=high left TF32 on')
 
     # path 1: the fused route
     torch.cuda.reset_peak_memory_stats()
@@ -1556,6 +2022,8 @@ def main():
     # timings
     flops = flops_chol_logpdf(B, N, D, M)
     times = time_ms({'blocked, kernel diag (auto)': pipeline(method='auto'),
+                     'blocked, 3xTF32 GEMMs (precision=high)': pipeline(
+                         method='auto', precision='high'),
                      'blocked, plain diag': pipeline(method='auto',
                                                      diag='recursive'),
                      'torch.linalg.cholesky (xla)': pipeline(method='xla'),
@@ -1646,6 +2114,8 @@ def main():
     record('rbf_covariance_pallas', err, t, None, bnd)
 
     for label, kw in (('blocked', {'method': 'auto'}),
+                      ('blocked 3xTF32', {'method': 'auto',
+                                          'precision': 'high'}),
                       ('fused', {'method': 'fused'})):
         profile(f'pipeline {label} [{card}]', pipeline(**kw))
 
@@ -1662,10 +2132,12 @@ def main():
     checked, counts = model_checking_path(trunc, card)
     del trunc
     time_model_checking(checked, card, kernels, counts)
+    loglikes = {name: checked['pointwise'][name, 'loglike']
+                for name in PW_PRIORS}
     del checked
-    print(f'timing [{card}] peak memory of the script '
-          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB since path 6 '
-          f'began; wall time of the whole script '
+    # path 7: batched throughput
+    batched_path(card, loglikes)
+    print(f'timing [{card}] wall time of the whole script '
           f'{time.perf_counter() - t_script:.1f} s')
 
     print(json.dumps({'kernels': kernels}))

@@ -22,13 +22,17 @@ multivariate normal and t) with the regularized incomplete beta function
 and its inverse as CUDA kernels (``csrc/incbeta.cu``, ``ops.incbeta``), the
 pointwise truncation model ``models.TruncationPointwise``, the numerical
 ``diagnostics.Diagnostic``, and the rest of ``helpers`` (``predictions``,
-the HPD intervals, ``kl_gauss``, the decorators, ``VariogramFourthRoot``).
+the HPD intervals, ``kl_gauss``, the decorators, ``VariogramFourthRoot``);
+batched throughput on one card: the bounded L-BFGS engines of
+``optimize``, ``ops.smallchol`` / ``ops.scanchol`` / ``ops.gridlml``, and
+``parallel`` (batched fits, grid sweeps, the batched posterior), with the
+3xTF32 opt-in (``precision`` / ``mxu_precision``).
 ``convert.to_torch`` moves the JAX package's inputs (numpy
 arrays and scalars) onto a device, ``convert.to_torch_kernel`` its kernels
 and ``convert.to_torch_model`` its models.
 """
 from . import (conjugate, convert, datasets, diagnostics, entry, helpers,
-               kernels, linalg, models, ops, optimize, stats)
+               kernels, linalg, models, ops, optimize, parallel, stats)
 from ._config import default_device, default_dtype, resolve_device
 from .diagnostics import Diagnostic
 from .helpers import (
@@ -78,7 +82,7 @@ from .models import (
 
 __all__ = ['conjugate', 'convert', 'datasets', 'diagnostics', 'entry',
            'helpers', 'kernels', 'linalg', 'models', 'ops', 'optimize',
-           'stats', 'default_device',
+           'parallel', 'stats', 'default_device',
            'default_dtype', 'resolve_device', 'ConstantKernel', 'WhiteKernel',
            'RBF', 'Matern', 'RationalQuadratic', 'ExpSineSquared',
            'DotProduct', 'Sum', 'Product', 'Exponentiation',

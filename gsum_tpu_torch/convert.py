@@ -5,11 +5,14 @@ arrays that ``numpy.asarray`` reads.  :func:`to_torch` turns such values, or
 dicts, tuples and lists of them, into tensors on an explicit device.
 :func:`to_torch_kernel` rebuilds a ``gsum_tpu`` kernel as the port's kernel
 of the same class and parameters (its θ, bounds and fixed flags come along),
-and :func:`to_torch_model` a ``gsum_tpu`` model as the port's.  None of them
-imports the JAX package: kernels and models are read by duck typing.
+:func:`to_torch_model` a ``gsum_tpu`` model as the port's, and
+:func:`to_torch_posterior` a ``gsum_tpu.parallel.BatchedPosterior``.  None
+of them imports the JAX package: kernels, models and states are read by
+duck typing.
 """
 from __future__ import annotations
 
+import dataclasses
 import numbers
 
 import numpy as np
@@ -17,7 +20,8 @@ import torch
 
 from ._config import resolve_device
 
-__all__ = ['to_torch', 'to_torch_kernel', 'to_torch_model']
+__all__ = ['to_torch', 'to_torch_kernel', 'to_torch_model',
+           'to_torch_posterior']
 
 
 def to_torch(tree, device, dtype=None):
@@ -171,3 +175,14 @@ def _pointwise(m, device, overrides):
         y, ratio, ref = to_torch((m.y_, m.ratio_, m.ref_), device)
         tp.fit(y, ratio, ref, orders=np.asarray(m.orders_))
     return tp
+
+
+def to_torch_posterior(post, device):
+    """The port's ``parallel.BatchedPosterior`` holding the arrays of
+    ``post``, a ``gsum_tpu`` ``BatchedPosterior`` (or any object with its
+    fields), as tensors on ``device`` with their dtypes."""
+    from .parallel import BatchedPosterior
+
+    return BatchedPosterior(**{
+        f.name: to_torch(np.asarray(getattr(post, f.name)), device)
+        for f in dataclasses.fields(BatchedPosterior)})

@@ -668,6 +668,13 @@ class ConjugateGaussianProcess(BaseConjugateProcess):
         R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
         sqrt_R, ok = _safe_sqrt_R(R_reg, decomposition,
                                   _resolve_chol_fn(self.chol_engine))
+        # f32 data (the batched fits' scalar engine; the models hold f64):
+        # factor in f32, then solve and update in f64, where JAX promotes
+        wide = result_dtype(R.dtype)
+        if wide != R.dtype:
+            sqrt_R = (sqrt_R.to(wide) if decomposition == 'cholesky'
+                      else tuple(t.to(wide) for t in sqrt_R))
+            y, basis = y.to(wide), basis.to(wide)
 
         df = _conj.compute_df(y=y, df0=df0)
         center = _conj.compute_center(y, sqrt_R, basis, center0=center0,

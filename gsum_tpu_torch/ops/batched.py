@@ -6,11 +6,11 @@ for each log-marginal-likelihood evaluation; here the same work runs
 batched over leading dimensions.  :func:`batched_chol_logpdf` is the
 pipeline that ``bench.py`` measures for the JAX package.
 
-GEMMs run in full f32.  The port needs
-``torch.backends.cuda.matmul.allow_tf32 == False`` (PyTorch's default): TF32
-keeps about three decimal digits, enough to break positive-definiteness of a
-large covariance.  The JAX ``precision`` argument (its TF32 counterpart is an
-opt-in) is not ported yet.
+GEMMs run in full f32 by default: one TF32 product keeps about three
+decimal digits, enough to break positive-definiteness of a large
+covariance.  ``batched_chol_logpdf(precision='high')`` runs the blocked
+route's factorization as 3xTF32 products (``ops.blockchol``), the
+counterpart of JAX's ``precision=Precision.HIGH``.
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ def batched_mvn_logpdf(K, diff):
 
 
 def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
-                        diag='auto', block=None):
+                        diag='auto', block=None, precision=None):
     R"""Pipeline: covariance build → Cholesky → MVN logpdf.
 
     Parameters
@@ -115,6 +115,12 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
         'kernel' | 'recursive' (``torch.linalg``)
     block : column-block width, or None for the selected engine's default
         (blocked: 128, fused: 256)
+    precision : None | 'highest' | 'high' — arithmetic of the blocked
+        route's factorization GEMMs ('high' is 3xTF32, three TF32
+        tensor-core products on split operands, ``ops.blockchol._mm``).
+        The covariance build and the solve stay full f32, as in JAX, and
+        the fused route's kernel and the diagonal kernel do FFMA
+        arithmetic, unaffected.
 
     Returns
     -------
@@ -128,7 +134,7 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
         w, logdet = fused_chol_solve_logdet(K, y, block=block or 256)
     elif method == 'blocked':
         w, logdet = blocked_chol_solve_logdet(K, y, block=block or 128,
-                                              diag=diag)
+                                              diag=diag, precision=precision)
     elif method == 'xla':
         return _logpdf_from_chol(batched_cholesky(K), y)
     else:

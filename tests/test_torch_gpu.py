@@ -502,3 +502,218 @@ def test_diagnostic_md_squared_on_the_card(cuda):
         np.testing.assert_allclose(
             dg.credible_interval(y, dobs).cpu().numpy(),
             dc.credible_interval(y, dobs).numpy(), rtol=1e-15)
+
+
+# ----------------------------------------------------------------------
+# batched throughput: smallchol / scanchol / gridlml / parallel.batched
+# ----------------------------------------------------------------------
+
+def _spd64(G, n, seed):
+    A = np.random.RandomState(seed).randn(G, n, n)
+    return A @ np.swapaxes(A, -1, -2) / n + np.eye(n)
+
+
+def _on(device, *arrays):
+    return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+def test_smallchol_and_scanchol_on_the_card(cuda):
+    """The batched small factorizations, the triangular inverse, the scan
+    factor and its solve at N=70 (block 32) in f64 on the card against the
+    CPU, 1e-12 relative to the largest entry (condition number below 5)."""
+    from gsum_tpu_torch.ops import (batched_small_cholesky,
+                                    batched_small_tri_inv,
+                                    scan_blocked_cholesky, scan_cho_solve)
+
+    A = _spd64(5, 70, 0)
+    B = np.random.RandomState(1).randn(5, 70, 3)
+    out = {}
+    for dev in (cuda, 'cpu'):
+        Ad, Bd = _on(dev, A, B)
+        L = batched_small_cholesky(Ad)
+        Ls, minvs = scan_blocked_cholesky(Ad, block=32)
+        out[dev] = [L, batched_small_tri_inv(L), Ls, minvs,
+                    scan_cho_solve(Ls, minvs, Bd)]
+    for got, want in zip(out[cuda], out['cpu']):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize('engine', ['unrolled', 'scan', 'blocked'])
+def test_grid_lml_on_the_card(cuda, engine):
+    """cgp_lml_grid f64 (the blocked engine's plain diagonal on the card,
+    f64) against the CPU at 1e-10, and its gradient in Rs at 1e-8."""
+    from gsum_tpu_torch.ops import cgp_lml_grid
+
+    rng = np.random.RandomState(2)
+    X = np.sort(rng.rand(160))
+    Rs = np.stack([np.exp(-0.5 * (X[:, None] - X[None]) ** 2 / ls ** 2)
+                   + 1e-3 * np.eye(160) for ls in (0.05, 0.1, 0.2)])
+    y = rng.randn(160, 2)
+    res = {}
+    for dev in (cuda, 'cpu'):
+        R, yd, basis = _on(dev, Rs, y, np.ones((160, 1)))
+        R.requires_grad_(True)
+        lml = cgp_lml_grid(R, yd, basis, 0.1, 0, 3.0, 1.0, engine=engine)
+        (g,) = torch.autograd.grad(lml.sum(), R)
+        res[dev] = (lml.detach().cpu().numpy(), g.cpu().numpy())
+    np.testing.assert_allclose(res[cuda][0], res['cpu'][0], rtol=1e-10)
+    np.testing.assert_allclose(res[cuda][1], res['cpu'][1], rtol=0,
+                               atol=1e-8 * np.abs(res['cpu'][1]).max())
+
+
+def test_blocked_grid_lml_launches_k1_in_forwards_only(cuda):
+    """f32 at N=512, block 128: each forward of the blocked engine launches
+    the diagonal kernel once per diagonal block (4), its backward none; a
+    blocked fit launches chunks × (1 + 2·maxiter) × blocks, as derived from
+    the code (one forward at the start of a chunk, a line search and a
+    value-and-gradient per iteration)."""
+    from gsum_tpu_torch.ops import cgp_lml_grid
+    from gsum_tpu_torch.parallel import batched_fit
+
+    rng = np.random.RandomState(3)
+    X = np.linspace(0, 1, 512)[:, None]
+    R = torch.tensor(np.exp(-0.5 * (X - X.T) ** 2 / 0.1 ** 2)
+                     + 1e-2 * np.eye(512), dtype=torch.float32,
+                     device=cuda).expand(3, 512, 512).clone()
+    y = torch.tensor(rng.randn(512, 1), dtype=torch.float32, device=cuda)
+    basis = torch.ones(512, 1, dtype=torch.float32, device=cuda)
+    R.requires_grad_(True)
+    before = chol_inv_block.launches
+    lml = cgp_lml_grid(R, y, basis, 0.0, 0, 3.0, 1.0, engine='blocked')
+    torch.cuda.synchronize()
+    assert chol_inv_block.launches == before + 4
+    lml.sum().backward()
+    torch.cuda.synchronize()
+    assert chol_inv_block.launches == before + 4
+    assert torch.isfinite(R.grad).all()
+
+    Y = np.sin(3 * X.T + rng.rand(3, 1) * 6.28) + 0.1 * rng.randn(3, 512)
+    before = chol_inv_block.launches
+    post = batched_fit(gt.RBF(0.5, (1e-2, 1e2)),
+                       torch.tensor(X, dtype=torch.float32, device=cuda),
+                       torch.tensor(Y, dtype=torch.float32, device=cuda),
+                       df=3, scale=1, nugget=1e-2, maxiter=3, chunk=2,
+                       ls_steps=4, engine='blocked')
+    torch.cuda.synchronize()
+    assert chol_inv_block.launches - before == 2 * (1 + 2 * 3) * 4
+    assert torch.isfinite(post.lml).all()
+
+
+def test_tf32_scope_on_the_card_forward_and_backward(cuda, monkeypatch):
+    """precision='high' runs the blocked factorization's products and the
+    backward's N-RHS products as 3xTF32 (TF32 on while each split
+    product's GEMMs are issued, in the backward too), and leaves the global
+    flag off after both.  It changes the result (the split path runs) and
+    recovers what one TF32 product loses: the solution and the gradient
+    at most 16 times as far from f64 as full f32 (3xTF32 keeps about 2⁻²¹
+    of each product where f32 keeps 2⁻²⁴) and at least 8 times closer to
+    it than the same call with every f32 GEMM in one-pass TF32 (the
+    global flag on; 2⁻¹¹)."""
+
+    flags = torch.backends.cuda.matmul
+    K = _blocks(1, 512, cuda, seed=5).expand(2, 512, 512).contiguous()
+    Y = torch.randn(2, 512, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    seen = []
+    matmul = torch.matmul
+
+    def spy(a, b):
+        seen.append(flags.allow_tf32)
+        return matmul(a, b)
+
+    def run(prec, dtype=torch.float32, flag=False):
+        Kg = K.to(dtype, copy=True).requires_grad_(True)
+        x, ld, ok = blocked_spd_solve_logdet(Kg, Y.to(dtype), block=128,
+                                             precision=prec)
+        n = len(seen)
+        assert flags.allow_tf32 is flag
+        (x.sum() + ld.sum()).backward()
+        assert flags.allow_tf32 is flag
+        return x.detach().double(), Kg.grad.double(), seen[:n], seen[n:]
+
+    monkeypatch.setattr(torch, 'matmul', spy)
+    x64, g64, _, _ = run(None, torch.float64)
+    seen.clear()
+    outs = {}
+    for prec in (None, 'high'):
+        outs[prec] = run(prec)
+        seen.clear()
+    monkeypatch.setattr(torch, 'matmul', matmul)
+    assert not any(outs[None][2] + outs[None][3])
+    assert any(outs['high'][2]) and any(outs['high'][3])
+    monkeypatch.setattr(flags, 'allow_tf32', True)
+    one_pass = run(None, flag=True)
+    monkeypatch.setattr(flags, 'allow_tf32', False)
+
+    assert not torch.equal(outs[None][0], outs['high'][0])
+    assert not torch.equal(outs[None][1], outs['high'][1])
+    for got, f32, tf32, ref in zip(outs['high'][:2], outs[None][:2],
+                                   one_pass[:2], (x64, g64)):
+        assert _rel_fro(got, ref) <= 16 * _rel_fro(f32, ref)
+        assert 8 * _rel_fro(got, ref) <= _rel_fro(tf32, ref)
+
+
+def test_batched_sweeps_and_posterior_on_the_card(cuda):
+    """batched_lml_grid (grid, scan, scalar), a small grid-engine fit,
+    truncation_lml_grid, pointwise_evidence_grid, batched_posterior_at and
+    batched_predict in f64 on the card against the CPU (1e-9 relative;
+    condition numbers below 1e5)."""
+    from gsum_tpu_torch.parallel import (batched_fit, batched_lml_grid,
+                                         batched_posterior_at,
+                                         batched_predict,
+                                         pointwise_evidence_grid,
+                                         truncation_lml_grid)
+
+    rng = np.random.RandomState(6)
+    X = np.linspace(0, 1, 40)[:, None]
+    Y = np.sin(3 * X.T + rng.rand(3, 1) * 6.28) + 0.1 * rng.randn(3, 40)
+    th = np.log(np.stack([np.linspace(0.5, 2, 4), np.linspace(0.1, 0.5, 4)],
+                         1))
+    k = gt.ConstantKernel(1.0, (1e-2, 1e2)) * gt.RBF(0.3, (1e-2, 10))
+    kw = dict(df=3, scale=1, nugget=1e-3)
+    orders = np.arange(4)
+    c = np.stack([np.sin(3 * X[:, 0] + j) for j in orders], 1)
+    ys = gt.partials(torch.tensor(c), ratio=0.5, ref=2.0).numpy()
+    res = {}
+    for dev in (cuda, 'cpu'):
+        Xd, Yd, thd, ysd = _on(dev, X, Y, th, ys)
+        out = [batched_lml_grid(k, Xd, Yd[0], thd, engine=e, **kw)
+               for e in ('grid', 'scan', 'scalar')]
+        post = batched_fit(k, Xd, Yd, maxiter=3, ls_steps=4, **kw)
+        out += [post.theta, post.lml]
+        kt = gt.RBF(0.3, (1e-2, 10)) + gt.WhiteKernel(1e-3, (1e-8, 1e-1))
+        tht = _on(dev, np.log([[0.2, 1e-3], [0.4, 1e-3]]))[0]
+        out.append(truncation_lml_grid(kt, Xd, ysd, orders,
+                                       _on(dev, np.array([0.4, 0.6]))[0],
+                                       tht, ref=2.0))
+        out.append(pointwise_evidence_grid(ysd, orders,
+                                           _on(dev, np.array([0.4, 0.6]))[0],
+                                           ref=2.0))
+        pa = batched_posterior_at(k, Xd, Yd[0], thd, disp=1.0, **kw)
+        out += [pa.lml, pa.scale_sq]
+        out += list(batched_predict(k, pa, Xd, Yd[0].expand(4, 40),
+                                    Xd[::7] + 0.01, student=True))
+        res[dev] = [o.detach().cpu().numpy() for o in out]
+    for got, want in zip(res[cuda], res['cpu']):
+        np.testing.assert_allclose(got, want, rtol=1e-9,
+                                   atol=1e-9 * np.abs(want).max())
+
+
+def test_hier_engine_through_the_kernel(cuda):
+    """diag='hier' at block 256, N=512 f32: each 256-wide diagonal block
+    splits into two 128-wide bases, each a launch of the diagonal kernel
+    (4 in all); the factor within 1e-5·max|L| of the f64 one."""
+    from gsum_tpu_torch.ops import batched_blocked_cholesky
+
+    A = np.random.RandomState(8).randn(2, 512, 512)
+    K = torch.tensor(A @ np.swapaxes(A, -1, -2) / 512 + np.eye(512),
+                     dtype=torch.float32, device=cuda)
+    before = chol_inv_block.launches
+    L = batched_blocked_cholesky(K, block=256, diag='hier')
+    torch.cuda.synchronize()
+    assert chol_inv_block.launches - before == 4
+    Lref = torch.linalg.cholesky(K.double())
+    assert (L.double() - Lref).abs().max().item() < \
+        1e-5 * Lref.abs().max().item()
