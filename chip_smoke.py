@@ -17,8 +17,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    - the incomplete-beta kernels ``ops.incbeta.betainc`` and ``betaincinv``
      at (4096, 5), f64 and f32, on the t quantile's arguments (a = df/2,
      b = 1/2) and the beta bands' (a, b up to about 4000);
-4. drives the eight paths once each, with every kernel's launch count set
-   to 0 just before and read just after:
+4. drives the ten paths once each, with every kernel's launch count set
+   to 0 just before and read just after (paths 8 and 9: around each of
+   their legs):
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
      f64 reference pipeline and the same route with the plain diagonal
@@ -72,6 +73,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      ``batched_predict``; each leg's time (CUDA events) and peak memory,
      and a subset of each leg against the CPU, with limits from the
      condition numbers;
+   - model checking and derivative observations (path 8): A, path 5's
+     TruncationGP with value and slope constraints (``dderivs``) at the 16
+     edge points, its constrained slope 0 from ``predict(dorders=)`` and a
+     central difference, against the CPU; B, ``derivs.kernel_deriv_cov``
+     (RBF, 4096 × 16 points, orders 0–2) against the closed form, and a
+     CGP with 64 first-derivative rows (lml gradient against a central
+     difference); C, ``GraphicalDiagnostic`` on path 6's setup (1024
+     points, nref 1000, both coefficient processes; the Student-t one
+     launches the incbeta kernels) and the variogram's data at 192 points,
+     the TP against the CPU; D, ``kl_data`` on leg B's recipe (K1 under
+     the blocked fits, its launches against the derived count), 'auto'
+     against 'loop' on a few draws;
+   - sampling and the utilities (path 9): A, ``sample_truncation_posterior``
+     over (ℓ, ratio) on leg E's data against leg E's grid posterior; B,
+     ``sample_theta_posterior`` of path 3's CGP at N=512 and
+     ``posterior_predictive`` at 32 points; C, ``checkpoint`` save → load,
+     predictions bit for bit; D, ``profiling.time_fn`` of one lml;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -1835,6 +1853,642 @@ def batched_path(card, loglikes, device='cuda'):
         raise AssertionError('path 7: ' + '; '.join(problems))
 
 
+# path 8: model checking and derivative observations at full width
+DERIV_H = 1e-3                 # central-difference step for the slope checks
+DERIV_CPU = 16                 # new points the CPU repeats
+DCGP_EVERY = 64                # every 64th row of 4096: a derivative row
+GD_NREF = 1000                 # GraphicalDiagnostic's draws (JAX's default)
+GD_INTERVALS = np.linspace(0.001, 0.999, 50)
+GD_CPU_INTERVALS = [0, 12, 25, 37, 49]      # the intervals the CPU repeats
+GD_COLORS = ['C0', 'C1', 'C2', 'C3', 'C4', 'C5', 'C6', 'C7']
+GD_VARIO_POINTS = 192          # path 6's per-bin width
+# leg D: draws (88 + 8 curves: about 20 s at ~5 fits/s, what the paths'
+# 120 s allow beside HMC), fit chunk, draws of the 'loop' comparison
+KL_NREF, KL_CHUNK, KL_LOOP = 88, 4, 3
+KL_FIT = dict(engine='blocked', precision='f32', chunk=KL_CHUNK,
+              maxiter=WIDE_MAXITER, ls_steps=10)
+
+
+def deriv_oracle(x, xp, ls, a, b):
+    """cov[f^(a)(x), f^(b)(xp)] of the unit RBF in one dimension, closed
+    form (the formulas of tests/test_derivs.py), for orders a, b ≤ 2."""
+    tau = x[:, None] - xp[None, :]
+    k = np.exp(-0.5 * tau ** 2 / ls ** 2)
+    s2, t2 = ls ** 2, tau ** 2
+    forms = {(0, 0): k, (0, 1): tau / s2 * k, (1, 0): -tau / s2 * k,
+             (1, 1): (1 / s2 - t2 / s2 ** 2) * k,
+             (2, 0): (t2 / s2 ** 2 - 1 / s2) * k,
+             (0, 2): (t2 / s2 ** 2 - 1 / s2) * k,
+             (2, 1): -(3 * tau / s2 ** 2 - tau ** 3 / s2 ** 3) * k,
+             (1, 2): (3 * tau / s2 ** 2 - tau ** 3 / s2 ** 3) * k,
+             (2, 2): (3 / s2 ** 2 - 6 * t2 / s2 ** 3 + t2 ** 2 / s2 ** 4) * k}
+    return forms[(a, b)]
+
+
+def edge_ratio(X):
+    """Path 8 A's expansion ratio, 0.5·(1 + 0.4·x₀) ∈ [0.5, 0.7]."""
+    return TRUNC_RATIO * (1.0 + 0.4 * X[:, 0])
+
+
+def slope_model(m5, device):
+    """Path 8 A's TruncationGP: path 5's fitted TruncationGP with its
+    WhiteKernel turned into the nugget (a WhiteKernel has no derivative
+    observations; the model's nugget adds the same diagonal in the fit and
+    nothing to the bands' cross-covariances, as the WhiteKernel's
+    two-argument form), θ fixed, the coefficients' mean estimated
+    (disp = 1) and the ratio rising across x₀ (0.5·(1 + 0.4·x₀), a torch
+    function that ``torch.func`` differentiates): the truncation band,
+    ref·Σₙ ratio(x)ⁿ·cₙ(x) over the orders above 3, then has a mean with a
+    slope, and no symmetry zeroes the slope at the edge once the value
+    constraints pin it to 0 there (a constant ratio, or a factor common to
+    every order, would: the band would be one stationary process times a
+    scale), so the slope constraints do."""
+    from gsum_tpu_torch import RBF, TruncationGP
+
+    k5 = m5.coeffs_process.kernel_
+    return TruncationGP(RBF(float(k5.k1.length_scale), (1e-2, 10)),
+                        ratio=edge_ratio, ref=TRUNC_REF, center=0, disp=1,
+                        df=3, scale=1, nugget=float(k5.k2.noise_level),
+                        optimizer=None, device=device)
+
+
+def slope_calls(model, X, y, dX, Xs, device):
+    """Path 8 A's calls: fit with value and slope constraints (dy = 0) at
+    the 16 edge points, the 'trunc' band with std and its x₀-slope at the
+    constraint points and at ``Xs``, and the band's mean at Xs ± h e₀."""
+    orders = np.arange(GP_CURVES)
+    n = len(dX)
+    dXc = np.concatenate([dX, dX])
+    dd = np.array([[0, 0]] * n + [[1, 0]] * n)
+    # the contrast first: value constraints alone leave a slope at the edge
+    model.fit(X, y, orders=orders, dX=dX, dy=np.zeros(n))
+    values_only = model.predict(dX, TRUNC_ORDER, kind='trunc',
+                                dorders=[[1, 0]] * n)
+    model.fit(X, y, orders=orders, dX=dXc, dy=np.zeros(2 * n), dderivs=dd)
+    slope = np.array([[1, 0]] * len(Xs))
+    e0 = np.array([DERIV_H, 0.0])
+    out = {'trunc': model.predict(Xs, TRUNC_ORDER, kind='trunc',
+                                  return_std=True),
+           'slope, value constraints only': values_only,
+           'slope at constraints': model.predict(
+               dX, TRUNC_ORDER, kind='trunc', dorders=[[1, 0]] * n,
+               return_std=True),
+           'slope': model.predict(Xs, TRUNC_ORDER, kind='trunc',
+                                  dorders=slope, return_std=True)}
+    for sign in (1, -1):
+        out[sign] = model.predict(Xs + sign * e0, TRUNC_ORDER, kind='trunc')
+        out[sign, 'con'] = model.predict(dX + sign * e0, TRUNC_ORDER,
+                                         kind='trunc')
+    return out
+
+
+def constraint_conditioning(model):
+    """The value-and-slope constraint covariance K of the truncation band
+    at the edge points, as the constrained band factors it: the jitter
+    ladder's rung and the jitter δ it adds, cond(K + δI), max diag K, and
+    the constraints' misfit in the band's metric, √(vᵀ(K + δI)⁻¹v) with
+    v = dy − m (what the posterior mean at a constraint may keep: at most
+    √δ times it)."""
+    from gsum_tpu_torch.derivs import deriv_cov, deriv_mean
+
+    cov_fn, mean_fn, _ = model._trunc_scalar_fns(TRUNC_ORDER + 1, np.inf)
+    Xd, dd = model.dX_, model.dderivs_
+    K = deriv_cov(cov_fn, Xd, dd)
+    rung, jitter = ladder(K)
+    v = (model.dy_ - deriv_mean(mean_fn, Xd, dd))[:, None]
+    Kj = K + jitter * torch.eye(len(K), dtype=K.dtype, device=K.device)
+    md = torch.sqrt(v.mT @ torch.cholesky_solve(
+        v, torch.linalg.cholesky(Kj))).item()
+    return rung, jitter, jittered_cond(K, jitter), \
+        torch.diagonal(K).max().item(), md
+
+
+def graphical_calls(moments, cv, Xv, device, nref=GD_NREF):
+    """Path 8 C's calls for each coefficient process: GraphicalDiagnostic
+    with ``nref`` draws, the QQ data of the four maps, the coverage bands at
+    50 intervals and the MD² reference grid."""
+    from gsum_tpu_torch import GraphicalDiagnostic
+
+    out = {}
+    for name, (mean, cov, df) in moments.items():
+        g = GraphicalDiagnostic(cv, mean, cov, df=df, nref=nref,
+                                colors=GD_COLORS, device=device)
+        out[name] = g
+        for m in g._WHITENERS:
+            out[name, m] = g.qq_band_data(m)
+        out[name, 'coverage'] = g.coverage_band_data(GD_INTERVALS)
+        out[name, 'md grid'] = g._dist_grid(g.md_ref_dist)
+    return out
+
+
+def kl_leg(device):
+    """Path 8 D's data: path 7 leg B's recipe (N=4096 on [0, 1], its 8
+    curves, RBF(0.5, (1e-2, 1e2)), df 3, nugget 1e-2, 'blocked' f32 fits)
+    with the nugget carried by a WhiteKernel that starts at 1e-2 and is
+    fitted too, so that the KL's cov_factor·R (R without the model's
+    nugget) is positive definite (a fixed WhiteKernel's f64 constant would
+    promote the f32 covariances to f64); the reference: mean 0 and the
+    kernel's covariance at its start θ."""
+    import gsum_tpu_torch as gt
+
+    (_, _), (_, _), (X3, y3) = scale_data()
+    kernel = gt.RBF(0.5, (1e-2, 1e2)) + gt.WhiteKernel(WIDE_NUGGET,
+                                                       (1e-4, 1.0))
+    X64 = torch.tensor(X3, dtype=torch.float64, device=device)
+    cov = kernel(X64)
+    mean = torch.zeros(WIDE_N, dtype=torch.float64, device=device)
+    gp = gt.ConjugateGaussianProcess(kernel, df=3, scale=1, nugget=1e-6,
+                                     device=device)
+    return X3, torch.tensor(y3.T, dtype=torch.float64, device=device), \
+        mean, cov, gp
+
+
+def derivative_checking_path(trunc, card, device='cuda'):
+    """Path 8: model checking and derivative observations at full width.
+    A, path 5's TruncationGP with value and slope constraints at the 16
+    edge points; B, ``kernel_deriv_cov`` at 4096 × 16 points against the
+    closed form and a CGP with 64 derivative rows; C, GraphicalDiagnostic
+    on path 6's setup (1024 points, nref 1000, both coefficient
+    processes); D, ``kl_data`` on path 7 leg B's recipe with K1 under the
+    blocked fits.  Each leg's launches are read around it; subsets are
+    checked against the CPU.  Returns A's model and the launches."""
+    import gsum_tpu_torch as gt
+    from gsum_tpu_torch.derivs import kernel_deriv_cov
+
+    t_path = time.perf_counter()
+    eps = torch.finfo(torch.float64).eps
+    X, c, y, Xnew, dX = trunc_data(device)
+    Xs = Xnew[:DERIV_CPU]
+    problems, launches, ms = [], {}, {}
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def leg(name, fn):
+        (res, t), counts = drive(lambda: timed(fn))
+        launches[name], ms[name] = counts, t
+        print(f'main path (derivatives, {name}): {t:.1f} ms, launches '
+              f'{counts}')
+        return res
+
+    # A: value and slope constraints of the truncation band
+    model = slope_model(trunc['TruncationGP'], device)
+    a = leg('A', lambda: slope_calls(model, X, y, dX, Xs, device))
+    rung, jitter, cond_c, s_c, md = constraint_conditioning(model)
+    tol_c = cond_tol(cond_c)
+    # at a constraint the posterior keeps at most √δ·md of the misfit and
+    # a variance of δ, plus the solve's cond·ε (as path 5's pinned band)
+    lim_mean = math.sqrt(jitter) * md + tol_c * math.sqrt(s_c)
+    lim_std = math.sqrt(jitter + tol_c * s_c)
+    s_con, sd_con = a['slope at constraints']
+    fd = (a[1] - a[-1]) / (2 * DERIV_H)
+    fd_con = (a[1, 'con'] - a[-1, 'con']) / (2 * DERIV_H)
+    ell = float(model.coeffs_process.kernel_.length_scale)
+    # central difference: truncation error h²/6·|m'''| ≤ h²/ℓ²·max|m'|
+    # (a GP mean's third derivative is about its first over ℓ²) and round
+    # off 2·(cond·ε·max|m|)/(2h)
+    m_max = a['trunc'][0].abs().max().item()
+    lim_fd = (DERIV_H ** 2 / ell ** 2 * a['slope'][0].abs().max().item()
+              + tol_c * m_max / DERIV_H)
+    contrast = a['slope, value constraints only'].abs().max().item()
+    errs = {'slope mean at the constraints (abs)':
+            (s_con.abs().max().item(), lim_mean),
+            'slope std at the constraints':
+            (sd_con.max().item(), lim_std),
+            'slope vs central difference of the mean (abs)':
+            ((a['slope'][0] - fd).abs().max().item(), lim_fd),
+            'central difference at the constraints (abs)':
+            (fd_con.abs().max().item(), lim_fd + lim_mean)}
+    # the CPU: the same model, the 'trunc' band and the slopes
+    cpu = slope_model(trunc['TruncationGP'], 'cpu')
+    ac = slope_calls(cpu, X, y.cpu(), dX, Xs, 'cpu')
+    rung_cpu = constraint_conditioning(cpu)[0]
+    check(rung == rung_cpu, f'A: jitter rungs card {rung}, CPU {rung_cpu}')
+    for key in ('trunc', 'slope', 'slope at constraints'):
+        for i, what in enumerate(('mean', 'std')):
+            band = ac[key][1].max() if i == 0 else 0.0
+            errs[f'{key} {what} card vs CPU'] = (
+                rel_err(a[key][i], ac[key][i], band), max(tol_c, GP_TOL))
+    del cpu, ac
+    print(f'main path (derivatives, A): TruncationGP N={GP_N} with 16 value '
+          f'and 16 slope constraints at x₀ = 1: the constraint covariance '
+          f'at jitter rung {rung} (CPU {rung_cpu}; δ {jitter:.3e}), cond '
+          f'{cond_c:.3e}, max diag {s_c:.3e}, misfit √(vᵀK⁻¹v) {md:.3e}; '
+          f'slope std at {DERIV_CPU} new points up to '
+          f'{a["slope"][1].max().item():.3e}, ℓ {ell:.4f}; the band\'s mean '
+          f'{a["trunc"][0].mean().item():.4g} at those points; with the '
+          f'value constraints alone the slope at x₀ = 1 reaches '
+          f'{contrast:.3e}; ' + ', '.join(
+              f'{k} {v:.3e} (limit {lim:.3e})' for k, (v, lim) in
+              errs.items()))
+    for k, (v, lim) in errs.items():
+        check(v <= lim, f'A: {k} {v:.3e} > {lim:.3e}')
+    check(contrast > lim_mean, f'A: the value constraints alone leave a '
+          f'slope of {contrast:.3e}, inside the limit {lim_mean:.3e}')
+
+    # B: the derivative covariance at 4096 × 16 points and a CGP with
+    # derivative rows
+    ls = 0.3
+    x1 = np.linspace(0.0, 1.0, GP_N)
+    x2 = np.linspace(0.05, 0.95, 16)
+    d1, d2 = np.arange(GP_N) % 3, np.arange(16) % 3
+    K = leg('B covariance', lambda: kernel_deriv_cov(
+        gt.RBF(ls), torch.tensor(x1[:, None], device=device), d1,
+        torch.tensor(x2[:, None], device=device), d2))
+    want = np.empty((GP_N, 16))
+    for a_ in range(3):
+        for b_ in range(3):
+            rows, cols = np.flatnonzero(d1 == a_), np.flatnonzero(d2 == b_)
+            want[np.ix_(rows, cols)] = deriv_oracle(x1[rows], x2[cols], ls,
+                                                    a_, b_)
+    err_k = rel_err(K, torch.tensor(want))
+    check(err_k <= 1e-12, f'B: kernel_deriv_cov {err_k:.3e} from the closed '
+          f'form')
+    Xg, yg, _ = gp_data()
+    dord = np.zeros((GP_N, GP_D), int)
+    dord[::DCGP_EVERY, 0] = 1
+    yd = yg[:, 0].copy()
+    rows = np.flatnonzero(dord[:, 0])
+    yd[rows] = 3 * np.cos(3 * Xg[rows, 0]) * np.cos(2 * Xg[rows, 1])
+    k5 = trunc['TruncationGP'].coeffs_process.kernel_
+    theta = np.log([float(k5.k1.length_scale)])
+    dgp = gt.ConjugateGaussianProcess(
+        gt.RBF(float(k5.k1.length_scale), (1e-2, 10)), df=3, scale=1,
+        nugget=float(k5.k2.noise_level), optimizer=None, device=device)
+
+    def dcgp():
+        dgp.fit(Xg, yd, dorders=dord)
+        return dgp.log_marginal_likelihood(theta, eval_gradient=True), \
+            dgp.predict(Xs, return_std=True)
+    (lml, grad), (dm, dsd) = leg('B CGP', dcgp)
+
+    # the gradient against a Richardson-extrapolated central difference;
+    # the lml's round-off δ is measured as its change under a permutation
+    # of the rows (another factorization order), so the difference's
+    # round-off is at most 3δ/h, and its truncation error |R(h) − R(2h)|
+    def f(t):
+        return dgp.log_marginal_likelihood(t).item()
+
+    def central(h):
+        return (f(theta + h) - f(theta - h)) / (2 * h)
+
+    h = 2e-3
+    D = {k: central(k * h) for k in (0.5, 1, 2)}
+    rich = (4 * D[0.5] - D[1]) / 3
+    rich2 = (4 * D[1] - D[2]) / 3
+    perm = np.random.RandomState(1).permutation(GP_N)
+    pgp = gt.ConjugateGaussianProcess(
+        gt.RBF(float(k5.k1.length_scale), (1e-2, 10)), df=3, scale=1,
+        nugget=float(k5.k2.noise_level), optimizer=None, device=device)
+    pgp.fit(Xg[perm], yd[perm], dorders=dord[perm])
+    delta = abs(pgp.log_marginal_likelihood(theta).item() - lml.item())
+    err_g = abs(grad.item() - rich)
+    lim_g = 3 * delta / (0.5 * h) + abs(rich - rich2)
+    print(f'main path (derivatives, B): kernel_deriv_cov RBF {GP_N} × 16, '
+          f'orders 0/1/2, vs closed form {err_k:.3e} (limit 1e-12); CGP '
+          f'N={GP_N} with {len(rows)} first-derivative rows: lml '
+          f'{lml.item():.10g} (rows permuted: δ {delta:.3e}), dlml/dlog ℓ '
+          f'{grad.item():.10g} vs Richardson central difference '
+          f'{rich:.10g} (h {h:g}): abs {err_g:.3e} (limit 3δ/h + |R(h) − '
+          f'R(2h)| = {lim_g:.3e}); prediction finite '
+          f'{bool(torch.isfinite(dm).all() and torch.isfinite(dsd).all())}')
+    check(err_g <= lim_g and torch.isfinite(dm).all()
+          and torch.isfinite(dsd).all(), f'B: the CGP with derivative rows '
+          f'({err_g:.3e})')
+    del pgp
+    del dgp, K
+
+    # C: GraphicalDiagnostic on path 6's setup
+    Xv, cv = X[::DIAG_STRIDE], c[::DIAG_STRIDE]
+    moments = {}
+    for name in TRUNC_PRIORS:
+        cp = trunc[name].coeffs_process
+        moments[name] = (cp.mean(Xv), cp.cov(Xv),
+                         None if name == 'TruncationGP' else cp.df_)
+    gd = {}
+    for name in TRUNC_PRIORS:
+        gd.update(leg(f'C {name}', lambda name=name: graphical_calls(
+            {name: moments[name]}, cv, Xv, device)))
+    n_v = GD_VARIO_POINTS
+    mean_gp, cov_gp, _ = moments['TruncationGP']
+    gv = gt.GraphicalDiagnostic(cv[:n_v], mean_gp[:n_v], cov_gp[:n_v, :n_v],
+                                nref=2, colors=GD_COLORS, device=device)
+    loc, gam, lo, hi = leg('C variogram', lambda: gv.variogram_data(
+        Xv[:n_v]))
+    # the band is the reference's (the data's semivariogram may leave it);
+    # it is NaN where the estimator's variance of a bin comes out
+    # negative, as in JAX (at these points one of the 30: the first bin of
+    # the second curve, in both packages)
+    band_ok = np.isfinite(lo) & np.isfinite(hi)
+    inside = (lo <= gam) & (gam <= hi)
+    print(f'main path (derivatives, C): variogram data at {n_v} points: '
+          f'{int((~band_ok).sum())} of {band_ok.size} bands NaN (at '
+          f'{np.argwhere(~band_ok).tolist()}); the data inside its band in '
+          f'{int(inside.sum())} of {int(band_ok.sum())}')
+    check(gam.shape == (GP_CURVES, 6) and np.isfinite(gam).all()
+          and np.all(lo[band_ok] < hi[band_ok]) and band_ok.sum() >= 29,
+          f'C: variogram data {gam.shape}, {int(band_ok.sum())} bands')
+    p1 = launches['C TruncationTP']['incbeta.betaincinv'] \
+        + launches['C TruncationTP']['incbeta.betainc']
+    check(p1 > 0, f'C: the Student-t diagnostic launched no incbeta kernel: '
+          f'{launches["C TruncationTP"]}')
+    # the CPU: the TP object with the card's draws, a subset of its data
+    name = 'TruncationTP'
+    mean, cov, df = moments[name]
+    g = gd[name]
+    gc = gt.GraphicalDiagnostic(cv.cpu(), mean.cpu(), cov.cpu(), df=df,
+                                nref=2, colors=GD_COLORS, device='cpu')
+    gc.samples = g.samples.cpu()
+    cond = torch.linalg.cond(cov).item()
+    tol = cond * 10 * eps
+    errs = {}
+    for m in ('individual', 'cholesky'):
+        tq, sd_, bands = gd[name, m]
+        tq_c, sd_c, bands_c = gc.qq_band_data(m)
+        errs[f'{m} theoretical quantiles'] = (rel_err(tq, tq_c), 1e-11)
+        errs[f'{m} order statistics'] = (rel_err(sd_, sd_c), tol)
+        errs[f'{m} bands'] = (max(rel_err(b, b2) for p, p2 in
+                                  zip(bands, bands_c) for b, b2 in
+                                  zip(p, p2)), tol)
+    # coverage at 5 of the 50 intervals (each interval's coverage and band
+    # stand alone; the CPU's plain quantiles take seconds per interval)
+    cov_d, bands_d = gd[name, 'coverage']
+    cov_d = cov_d[:, GD_CPU_INTERVALS]
+    cov_c, bands_cc = gc.coverage_band_data(GD_INTERVALS[GD_CPU_INTERVALS])
+    errs['coverage bands'] = (max(float(np.abs(b[GD_CPU_INTERVALS] - b2).max())
+                                  for p, p2 in zip(bands_d, bands_cc)
+                                  for b, b2 in zip(p, p2)), 1e-15)
+    # a point within tol·σ of an interval's end may count on one device
+    # and not the other (as path 6)
+    lo_c, hi_c = gc.diagnostic.udist.interval(torch.atleast_2d(
+        torch.tensor(GD_INTERVALS[GD_CPU_INTERVALS])).mT)
+    sdv = gc.diagnostic.sd
+    yv = cv.cpu().double().mT[:, None, :]
+    near = ((yv - lo_c).abs() <= tol * sdv) | ((yv - hi_c).abs() <= tol * sdv)
+    errs['coverage'] = (float(np.abs(cov_d - cov_c).max()),
+                        near.sum(-1).max().item() / len(Xv) + 1e-15)
+    # the MD² grid: its ends are F quantiles x = (dfd/dfn)·w/(1 − w) of a
+    # beta quantile w (betaincinv, kernel and plain version within
+    # INCBETA_TOL of each other), so x moves by INCBETA_TOL/(w(1 − w));
+    # the pdf is compared at the card's points
+    xs_g, pdf_g = gd[name, 'md grid']
+    xs_c, _ = gc._dist_grid(gc.md_ref_dist)
+    dfn = cov.shape[0]
+    x_std = xs_c[[0, -1]] / ((df - 2) * dfn / df)     # the F's scale
+    w = dfn * x_std / (df + dfn * x_std)
+    tol_w = INCBETA_TOL[torch.float64]['betaincinv']
+    errs['md² grid points'] = (rel_err(xs_g, xs_c),
+                               tol_w / float(np.min(w * (1 - w))))
+    errs['md² grid pdf at the same points'] = (
+        rel_err(pdf_g, gc.md_ref_dist.pdf(xs_g)), 1e-12)
+    print(f'main path (derivatives, C): GraphicalDiagnostic at {len(Xv)} '
+          f'points, nref {GD_NREF}, both coefficient processes; P1 launches '
+          f'(TP) {launches["C TruncationTP"]}; the TP card vs CPU (cond(cov) '
+          f'{cond:.3e}): ' + ', '.join(f'{k} {v:.3e} (limit {lim:.3e})'
+                                       for k, (v, lim) in errs.items()))
+    for k, (v, lim) in errs.items():
+        check(v <= lim, f'C: {k} {v:.3e} > {lim:.3e}')
+    for key, val in gd.items():
+        if isinstance(key, tuple) and key[1] in gt.GraphicalDiagnostic.\
+                _WHITENERS:
+            check(np.isfinite(val[1]).all() and all(
+                np.isfinite(b).all() for p in val[2] for b in p),
+                f'C: {key} not finite')
+    del gd, gc, gv
+
+    # D: kl_data on leg B's recipe
+    X3, y3, mean, cov, gp = kl_leg(device)
+    gk = gt.GraphicalDiagnostic(y3, mean, cov, nref=KL_NREF,
+                                colors=GD_COLORS, device=device)
+    n_fit = KL_NREF + y3.shape[1]
+    data_kl, ref_kl = leg('D', lambda: gk.kl_data(X3, gp, fit_kws=KL_FIT))
+    want = k1_fit_launches(n_fit, KL_CHUNK, WIDE_MAXITER, WIDE_N)
+    k1 = launches['D']['chol_inv_block']
+    check(k1 == want, f'D: {k1} K1 launches, derived {want}')
+    check(np.isfinite(data_kl).all() and np.isfinite(ref_kl).all(),
+          'D: non-finite KL')
+    # 'auto' against 'loop' on a few draws at a fixed θ (the batched
+    # engine's shared factorization against one fit per draw), f64
+    few = gt.GraphicalDiagnostic(y3[:, :1], mean, cov, nref=KL_LOOP,
+                                 colors=GD_COLORS, device=device)
+    gp_fixed = gt.ConjugateGaussianProcess(
+        gp.kernel, df=3, scale=1, nugget=1e-6, optimizer=None, device=device)
+    X64 = torch.tensor(X3, dtype=torch.float64, device=device)
+    auto = few.kl_data(X64, gp_fixed, engine='auto')
+    loop = few.kl_data(X64, gp_fixed, engine='loop')
+    cond_k = torch.linalg.cond(cov).item()
+    err_l = max(rel_err(a_, b_) for a_, b_ in zip(auto, loop))
+    print(f'main path (derivatives, D): kl_data N={WIDE_N} f32 fits '
+          f"('blocked'), {KL_NREF} draws + {y3.shape[1]} curves in "
+          f'{ms["D"]:.1f} ms ({n_fit / ms["D"] * 1e3:.2f} fits/s), K1 '
+          f'launches {k1} (derived {want}); data KL {data_kl.tolist()}, '
+          f'reference KL median {np.median(ref_kl):.4g} range '
+          f'[{ref_kl.min():.4g}, {ref_kl.max():.4g}]; auto vs loop on '
+          f'{KL_LOOP} draws + 1 curve at a fixed θ: {err_l:.3e} (limit '
+          f'{cond_tol(cond_k):.3e}, cond {cond_k:.3e})')
+    check(err_l <= cond_tol(cond_k), f'D: auto vs loop {err_l:.3e}')
+    print(f'timing [{card}] path 8: ' + ', '.join(
+        f'{k} {v:.1f} ms' for k, v in ms.items())
+        + f'; wall {time.perf_counter() - t_path:.1f} s (card and CPU)')
+    if problems:
+        raise AssertionError('path 8: ' + '; '.join(problems))
+    return model, launches
+
+
+# path 9: sampling and utilities
+HMC_CHAINS = 4
+# HMC steps: a gradient evaluation of 4 chains takes 25–40 ms on the card
+# (host-bound: the device is 95% idle), so the runs are sized to about 35 s
+# and 10 s.  A needs 10 leapfrog steps: the ratio's scale in z is several
+# times ℓ's, and one step size serves both (4 steps gave it an ESS of 14)
+HMC_TRUNC = dict(n_warmup=40, n_samples=50, n_leapfrog=10)
+HMC_CGP = dict(n_warmup=30, n_samples=40, n_leapfrog=4)
+HMC_CGP_N, PRED_N, PRED_DRAWS = 512, 32, 64
+ELL_BOX, RATIO_BOX = (0.05, 1.0), (0.3, 0.7)    # leg E's grid ranges
+
+
+def grid_posterior_means(surf, log_ell, ratios):
+    """Posterior means of log ℓ and of the ratio from a (len(log_ell),
+    len(ratios)) lml grid, trapezoid quadrature (flat in log ℓ and in the
+    ratio, the sampler's prior); with the same on every other grid point,
+    whose difference estimates the quadrature's error."""
+    def means(s, le, r):
+        w = np.exp(s - s.max())
+        z = np.trapezoid(np.trapezoid(w, r, axis=1), le)
+        m_l = np.trapezoid(np.trapezoid(w, r, axis=1) * le, le) / z
+        m_r = np.trapezoid(np.trapezoid(w, le, axis=0) * r, r) / z
+        return np.array([m_l, m_r])
+    full = means(surf, log_ell, ratios)
+    half = means(surf[::2, ::2], log_ell[::2], ratios[::2])
+    return full, np.abs(full - half)
+
+
+def sampling_path(trunc, model_a, card, device='cuda'):
+    """Path 9: A, ``sample_truncation_posterior`` over (ℓ, ratio) on leg
+    E's data against leg E's 100 × 80 grid posterior; B,
+    ``sample_theta_posterior`` of path 3's CGP at N=512 and
+    ``posterior_predictive`` at 32 points; C, ``checkpoint`` save → load of
+    path 5's TruncationGP and path 8 A's model, predictions bit for bit; D,
+    ``profiling.time_fn`` of one lml."""
+    import tempfile
+
+    import gsum_tpu_torch as gt
+    from gsum_tpu_torch import checkpoint, profiling
+    from gsum_tpu_torch.parallel import truncation_lml_grid
+    from gsum_tpu_torch.sample import (posterior_predictive,
+                                       sample_theta_posterior,
+                                       sample_truncation_posterior)
+
+    t_path = time.perf_counter()
+    problems, launches, ms = [], {}, {}
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def leg(name, fn):
+        (res, t), counts = drive(lambda: timed(fn))
+        launches[name], ms[name] = counts, t
+        print(f'main path (sampling, {name}): {t:.1f} ms, launches {counts}')
+        return res
+
+    # A: the joint (ℓ, ratio) posterior on leg E's data
+    X, _, y, Xnew, _ = trunc_data(device)
+    Xe, ye = X[::TGRID_STRIDE], y[::TGRID_STRIDE]
+    kernel = gt.RBF(0.3, ELL_BOX) + gt.WhiteKernel(1e-4, 'fixed')
+    tgp = gt.TruncationGP(kernel, ratio=TRUNC_RATIO, ref=TRUNC_REF,
+                          optimizer=None, device=device,
+                          **TGRID_PRIORS['gp'])
+    tgp.fit(Xe, ye, orders=np.arange(GP_CURVES))
+    draws, info = leg('A', lambda: sample_truncation_posterior(
+        tgp, 'ratio', RATIO_BOX, n_chains=HMC_CHAINS, random_state=0,
+        **HMC_TRUNC))
+    log_ell = np.log(np.linspace(*ELL_BOX, TGRID_T))
+    ratios = np.linspace(*RATIO_BOX, TGRID_R)
+    thE = torch.tensor(np.stack([log_ell, np.full(TGRID_T, np.log(1e-4))], 1),
+                       device=device)
+    surf = truncation_lml_grid(trunc_kernel(), torch.tensor(Xe, device=device),
+                               ye, np.arange(GP_CURVES),
+                               torch.tensor(ratios, device=device), thE,
+                               ref=TRUNC_REF, process='gp',
+                               **TGRID_PRIORS['gp']).cpu().numpy()
+    grid_m, quad_err = grid_posterior_means(surf, log_ell, ratios)
+    s = draws.cpu().numpy().reshape(-1, 2)
+    hmc_m = s.mean(0)
+    mcse = s.std(0) / np.sqrt(info['ess'])
+    lim = 4 * mcse + quad_err
+    print(f'main path (sampling, A): TruncationGP N={len(Xe)} (ℓ, ratio), '
+          f'{HMC_CHAINS} chains × {HMC_TRUNC}: means (log ℓ, ratio) '
+          f'{hmc_m.tolist()} vs the {TGRID_T} × {TGRID_R} grid '
+          f'{grid_m.tolist()}: |diff| {np.abs(hmc_m - grid_m).tolist()} '
+          f'(limits 4 MCSE {(4 * mcse).tolist()} + the grid\'s quadrature '
+          f'error {quad_err.tolist()}); ESS {info["ess"].tolist()}, split-R̂ '
+          f'{info["rhat"].tolist()}, accept {info["accept_rate"].tolist()}, '
+          f'step {info["step_size"].tolist()}')
+    check(np.all(np.abs(hmc_m - grid_m) <= lim), 'A: HMC means vs grid')
+    check(np.all(info['rhat'] < 1.05), f'A: split-R̂ {info["rhat"]}')
+    # one gradient evaluation of the sampler's density, and the run's
+    # share of idle device time over a short window
+    from torch.func import grad_and_value, vmap
+
+    z = torch.tensor([[math.log(0.3), TRUNC_RATIO]] * HMC_CHAINS,
+                     device=device, dtype=torch.float64)
+    X_, y_, o_ = tgp.X_train_, tgp.y_train_, np.arange(GP_CURVES)
+    gv = vmap(grad_and_value(lambda x: tgp._joint_lml(
+        x[:1], X_, y_, o_, ratio=x[1])))
+    t_grad = time_ms({'gradient': lambda: gv(z)}, rounds=4)['gradient']
+    n_grad = (HMC_TRUNC['n_warmup'] + HMC_TRUNC['n_samples']) \
+        * HMC_TRUNC['n_leapfrog'] + 1
+    print(f'timing [{card}] path 9 A: one gradient evaluation of {HMC_CHAINS} '
+          f'chains {t_grad:.3f} ms; the run {ms["A"]:.1f} ms for {n_grad} '
+          f'evaluations ({ms["A"] / n_grad:.3f} ms each)')
+    # the profiler's window is one gradient evaluation: with a window of
+    # 10 HMC steps, path 9's wall time on the H100 ran about 50 s above
+    # the sum of its legs
+    profile(f'HMC, one gradient evaluation of {HMC_CHAINS} chains '
+            f'(N={len(Xe)}) [{card}]', lambda: gv(z))
+
+    # B: path 3's CGP at N=512
+    Xg, yg, _ = gp_data()
+    gp = gp_model(device, optimizer=None)
+    gp.fit(Xg[:HMC_CGP_N], yg[:HMC_CGP_N])
+    thetas, info_b = leg('B', lambda: sample_theta_posterior(
+        gp, n_chains=HMC_CHAINS, random_state=1, **HMC_CGP))
+    flat = thetas.reshape(-1, thetas.shape[-1])
+    picks = flat[torch.linspace(0, len(flat) - 1, PRED_DRAWS).long()]
+    Xp = Xnew[:PRED_N]
+    mean_p, std_p = leg('B predictive', lambda: posterior_predictive(
+        gp, Xp, picks))
+    gpc = gp_model('cpu', optimizer=None).fit(Xg[:HMC_CGP_N],
+                                              yg[:HMC_CGP_N])
+    mean_c, std_c = posterior_predictive(gpc, Xp, picks[:4].cpu())
+    mean_g4, std_g4 = posterior_predictive(gp, Xp, picks[:4])
+    conds = cond_of(gp.kernel_, picks[:4], gp.X_train_, gp.nugget)
+    err_p = max(rel_err(mean_g4, mean_c, std_c.max()),
+                rel_err(std_g4, std_c))
+    lo_b, hi_b = gp.kernel_.bounds.T
+    inside = bool(((flat.cpu().numpy() >= lo_b - 1e-9)
+                   & (flat.cpu().numpy() <= hi_b + 1e-9)).all())
+    print(f'main path (sampling, B): CGP N={HMC_CGP_N} θ = (log ℓ, log '
+          f'noise), {HMC_CHAINS} chains × {HMC_CGP}: posterior means '
+          f'{flat.mean(0).tolist()}, sd {flat.std(0).tolist()}, ESS '
+          f'{info_b["ess"].tolist()}, split-R̂ {info_b["rhat"].tolist()}, '
+          f'accept {info_b["accept_rate"].tolist()}, in the box {inside}; '
+          f'posterior_predictive at {PRED_N} points over {PRED_DRAWS} draws '
+          f'finite {bool(torch.isfinite(mean_p).all())}; 4 draws card vs '
+          f'CPU {err_p:.3e} (limit {cond_tol(max(conds)):.3e})')
+    # a short run (its R̂ and ESS are reported, not held: path 9 A holds
+    # the sampler to a grid)
+    check(inside and np.all(info_b['accept_rate'] > 0.5)
+          and bool(torch.isfinite(mean_p).all() and torch.isfinite(
+              std_p).all()) and mean_p.shape == (PRED_N, GP_CURVES),
+          'B: the CGP posterior')
+    check(err_p <= cond_tol(max(conds)), f'B: predictive card vs CPU '
+          f'{err_p:.3e}')
+
+    # C: checkpoints, predictions bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        def round_trip():
+            same = {}
+            m5 = trunc['TruncationGP']
+            checkpoint.save(f'{tmp}/m5', m5)
+            r5 = checkpoint.load(f'{tmp}/m5', trunc_model('TruncationGP',
+                                                          device))
+            checkpoint.save(f'{tmp}/ma', model_a)
+            ra = checkpoint.load(f'{tmp}/ma', slope_model(m5, device))
+            for label, (m, r, kw) in {
+                    'path 5 both': (m5, r5, {}),
+                    'A both': (model_a, ra, {}),
+                    'A slope': (model_a, ra, dict(
+                        kind='trunc', dorders=[[1, 0]] * 16))}.items():
+                pts = Xnew if 'slope' not in label else Xnew[:16]
+                got = r.predict(pts, TRUNC_ORDER, return_std=True, **kw)
+                want = m.predict(pts, TRUNC_ORDER, return_std=True, **kw)
+                same[label] = all(torch.equal(g, w)
+                                  for g, w in zip(got, want))
+            return same
+        same = leg('C', round_trip)
+    print(f'main path (sampling, C): checkpoint save → load, predictions '
+          f'bit for bit on the card: {same}')
+    check(all(same.values()), f'C: {same}')
+
+    # D: profiling.time_fn of one lml
+    th = torch.tensor(gp.kernel_.theta, device=device)
+    t_lml = profiling.time_fn(lambda t: gp.log_marginal_likelihood(t), th)
+    flops = profiling.flops_lml(HMC_CGP_N, GP_CURVES, 2)
+    print(f'timing [{card}] path 9 D: profiling.time_fn of one lml at '
+          f'N={HMC_CGP_N} (CUDA events) {t_lml * 1e3:.3f} ms, '
+          f'{flops / t_lml / 1e9:.2f} GFLOP/s by flops_lml')
+    check(0 < t_lml < 1, f'D: time_fn {t_lml}')
+    print(f'timing [{card}] path 9: ' + ', '.join(
+        f'{k} {v:.1f} ms' for k, v in ms.items())
+        + f'; wall {time.perf_counter() - t_path:.1f} s (card and CPU)')
+    if problems:
+        raise AssertionError('path 9: ' + '; '.join(problems))
+    return launches
+
+
 def kernel_device_ms(fn, calls=10):
     """Device time in ms of one call of ``fn``: CUDA events around
     ``calls`` calls queued behind a spin kernel, so that the card runs them
@@ -2130,13 +2784,25 @@ def main():
     time_truncation(trunc, card)
     # path 6: the model-checking slice on path 5's models and data
     checked, counts = model_checking_path(trunc, card)
-    del trunc
     time_model_checking(checked, card, kernels, counts)
     loglikes = {name: checked['pointwise'][name, 'loglike']
                 for name in PW_PRIORS}
     del checked
     # path 7: batched throughput
     batched_path(card, loglikes)
+    # paths 8 and 9: model checking with derivative observations, and
+    # sampling and the utilities, on path 5's models
+    t89 = time.perf_counter()
+    model_a, launches8 = derivative_checking_path(trunc, card)
+    t8 = time.perf_counter() - t89
+    launches9 = sampling_path(trunc, model_a, card)
+    t9 = time.perf_counter() - t89 - t8
+    del trunc, model_a
+    for path, counts in (('8', launches8), ('9', launches9)):
+        print(f'main path (paths 8-9): path {path} launches by leg: '
+              + '; '.join(f'{leg} {c}' for leg, c in counts.items()))
+    print(f'timing [{card}] path 8 {t8:.1f} s, path 9 {t9:.1f} s, together '
+          f'{t8 + t9:.1f} s')
     print(f'timing [{card}] wall time of the whole script '
           f'{time.perf_counter() - t_script:.1f} s')
 

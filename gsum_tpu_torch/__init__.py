@@ -26,15 +26,21 @@ the HPD intervals, ``kl_gauss``, the decorators, ``VariogramFourthRoot``);
 batched throughput on one card: the bounded L-BFGS engines of
 ``optimize``, ``ops.smallchol`` / ``ops.scanchol`` / ``ops.gridlml``, and
 ``parallel`` (batched fits, grid sweeps, the batched posterior), with the
-3xTF32 opt-in (``precision`` / ``mxu_precision``).
+3xTF32 opt-in (``precision`` / ``mxu_precision``); model checking,
+derivative observations and sampling: ``derivs`` (derivative
+cross-covariances by ``torch.func``, behind the models' ``dorders`` and
+``dderivs``), ``diagnostics.GraphicalDiagnostic`` with its renderer
+``viz``, the HMC of ``sample``, ``checkpoint`` (the JAX package's npz
+format), ``profiling`` and ``pdfmeta``.
 ``convert.to_torch`` moves the JAX package's inputs (numpy
 arrays and scalars) onto a device, ``convert.to_torch_kernel`` its kernels
 and ``convert.to_torch_model`` its models.
 """
-from . import (conjugate, convert, datasets, diagnostics, entry, helpers,
-               kernels, linalg, models, ops, optimize, parallel, stats)
+from . import (checkpoint, conjugate, convert, datasets, derivs, diagnostics,
+               entry, helpers, kernels, linalg, models, ops, optimize,
+               parallel, pdfmeta, profiling, sample, stats, viz)
 from ._config import default_device, default_dtype, resolve_device
-from .diagnostics import Diagnostic
+from .diagnostics import Diagnostic, GraphicalDiagnostic
 from .helpers import (
     VariogramFourthRoot,
     cartesian,
@@ -80,15 +86,17 @@ from .models import (
     TruncationTP,
 )
 
-__all__ = ['conjugate', 'convert', 'datasets', 'diagnostics', 'entry',
-           'helpers', 'kernels', 'linalg', 'models', 'ops', 'optimize',
-           'parallel', 'stats', 'default_device',
+__all__ = ['checkpoint', 'conjugate', 'convert', 'datasets', 'derivs',
+           'diagnostics', 'entry', 'helpers', 'kernels', 'linalg', 'models',
+           'ops', 'optimize', 'parallel', 'pdfmeta', 'profiling', 'sample',
+           'stats', 'viz', 'default_device',
            'default_dtype', 'resolve_device', 'ConstantKernel', 'WhiteKernel',
            'RBF', 'Matern', 'RationalQuadratic', 'ExpSineSquared',
            'DotProduct', 'Sum', 'Product', 'Exponentiation',
            'BaseConjugateProcess', 'ConjugateGaussianProcess',
            'ConjugateStudentProcess', 'TruncationProcess', 'TruncationGP',
            'TruncationTP', 'TruncationPointwise', 'Diagnostic',
+           'GraphicalDiagnostic',
            'cartesian', 'toy_data', 'generate_coefficients', 'coefficients',
            'partials', 'predictions', 'stabilize', 'gaussian', 'hpd',
            'hpd_pdf', 'median_pdf', 'kl_gauss', 'rbf', 'default_attributes',

@@ -132,7 +132,12 @@ def to_torch_model(m, device, **overrides):
     ``ratio``, ``ref``, ``excluded`` and ``ratio_kws``) and its kernel
     through :func:`to_torch_kernel`: the fitted ``kernel_`` with
     ``optimizer=None`` when ``m`` is fitted, so that a fit on the same data
-    reproduces ``m``'s fitted state.  The result is not fitted.
+    reproduces ``m``'s fitted state.  The result is not fitted, but
+    carries ``m``'s derivative data: ``dorders_`` of a conjugate process
+    (and of a truncation model's coefficient process), and ``dX_``,
+    ``dy_`` and ``dderivs_`` of a truncation model, so that
+    ``tm.fit(X, y, dorders=tm.dorders_)`` or ``tm.fit(X, y, orders,
+    dX=tm.dX_, dy=tm.dy_, dderivs=tm.dderivs_)`` reproduces ``m``'s fit.
 
     A user's callable (``basis``, a callable ``ratio`` or ``ref``) is written
     in ``jax.numpy`` and cannot cross: pass its torch twin in
@@ -160,7 +165,27 @@ def to_torch_model(m, device, **overrides):
         raise ValueError(f'{name} has a user callable for {missing}: pass its '
                          'torch twin as a keyword')
     kw.update(overrides)
-    return getattr(models, name)(device=resolve_device(device), **kw)
+    device = resolve_device(device)
+    tm = getattr(models, name)(device=device, **kw)
+    _carry_derivative_data(m, tm, device)
+    return tm
+
+
+def _carry_derivative_data(m, tm, device):
+    """Copies the derivative data of ``m`` onto its twin ``tm``: orders as
+    numpy integer arrays, constraint points and values as tensors."""
+    def orders(d):
+        return None if d is None else np.asarray(d, dtype=int)
+
+    cp, tcp = getattr(m, 'coeffs_process', m), \
+        getattr(tm, 'coeffs_process', tm)
+    tcp.dorders_ = orders(getattr(cp, 'dorders_', None))
+    if tcp is not tm:
+        tm.dderivs_ = orders(getattr(m, 'dderivs_', None))
+        for f in ('dX_', 'dy_'):
+            v = getattr(m, f, None)
+            setattr(tm, f, None if v is None else to_torch(np.asarray(v),
+                                                           device))
 
 
 def _pointwise(m, device, overrides):

@@ -29,9 +29,10 @@ conjugate iid coefficients and a Student-t truncation error per point, on
 ``stats.t``; its ``credible_diagnostic`` draws reference bands from
 ``stats.beta`` (through ``helpers.hpd``) or ``stats.binom``.
 
-Not ported yet: derivative observations (``fit`` / ``predict`` with a
-non-zero ``dorders``, ``TruncationProcess.fit(dderivs=...)``), which need
-``derivs`` (ROADMAP.md queue A, model checking).
+Derivative observations (``fit(dorders=)``, ``predict(dorders=)``,
+``TruncationProcess.fit(dderivs=)``) take their cross-covariances from
+:mod:`gsum_tpu_torch.derivs`; x-dependent ``ratio`` / ``ref`` callables must
+then be written in torch operations that ``torch.func`` transforms.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ import torch
 
 from . import conjugate as _conj
 from ._config import as_input, device_constant, resolve_device, result_dtype
+from .derivs import (_as_float, _check_kernel_orders, deriv_basis, deriv_cov,
+                     deriv_mean, normalize_orders, wrap_value_fn_with_orders)
 from .helpers import _generator, _on, coefficients, geometric_sum, hpd
 from .kernels import RBF, ConstantKernel
 from .linalg import (cholesky, eigh_sqrt, logdet_sqrt, robust_cho_solve,
@@ -60,12 +63,41 @@ def _default_basis(X):
     return torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
 
 
-def _no_derivatives(dorders, where, arg='dorders'):
-    if dorders is not None and np.any(np.asarray(dorders)):
-        raise NotImplementedError(
-            f'derivative observations ({where}({arg}=...) with a non-zero '
-            'order) are not ported yet: they need gsum_tpu_torch.derivs, '
-            'which comes with the model-checking slice')
+def _normalize_predict_dorders_for(kernel, is_fit, X, dorders):
+    """Validated (N, n_features) orders of the PREDICTION points, or None
+    where they are absent or all zero (the plain value path)."""
+    if dorders is None:
+        return None
+    d = normalize_orders(dorders, X.shape[0], X.shape[1])
+    if not np.any(d):
+        return None
+    if not is_fit:
+        raise ValueError(
+            'derivative predictions (predict(dorders=)) require a fitted '
+            'model')
+    _check_kernel_orders(kernel, d)
+    if _contains_white(kernel):
+        raise ValueError(
+            'derivative predictions are incompatible with WhiteKernel '
+            'terms (a delta correlation has no derivatives) — drop the '
+            'WhiteKernel and use the nugget parameter for uniform '
+            'observation noise')
+    return d
+
+
+def _contains_white(kernel):
+    """True if a WhiteKernel term appears anywhere in the composition: its
+    two-argument form, from which derivative cross-covariances are built,
+    is zero, so its noise would vanish from derivative data."""
+    from . import kernels as _k
+
+    if isinstance(kernel, _k.WhiteKernel):
+        return True
+    if isinstance(kernel, _k.KernelOperator):
+        return _contains_white(kernel.k1) or _contains_white(kernel.k2)
+    if isinstance(kernel, _k.Exponentiation):
+        return _contains_white(kernel.kernel)
+    return False
 
 
 class BaseConjugateProcess:
@@ -299,9 +331,56 @@ class BaseConjugateProcess:
             return self._default_kernel
         return self.kernel
 
+    # ------------------------------------------------------------------
+    # Derivative training data (gsum_tpu_torch.derivs)
+    # ------------------------------------------------------------------
+    def _wrap_corr_fn(self, value_fn):
+        """The correlation builder of the lml, the fitted state and the
+        prediction: the kernel's ``value_fn``, or its order-aware wrapper
+        when the training rows are derivative observations."""
+        if self.dorders_ is None:
+            return value_fn
+        return wrap_value_fn_with_orders(value_fn, np.asarray(self.dorders_))
+
+    def _deriv_cross_corr(self, Xa, da, Xb=None, db=None):
+        """Correlation blocks between rows carrying derivative orders, at
+        the fitted hyperparameters.  ``da`` / ``db`` of None mean value
+        rows; ``Xb`` of None means the (Xa, da) self-block."""
+        kernel = self.kernel_
+        theta = self._theta()
+
+        def cov_fn(x, xp):
+            return kernel.value_fn(theta, x[None, :], xp[None, :])[0, 0]
+
+        def value_block(A, B):
+            return kernel.value_fn(theta, A, B)
+
+        Xa = _as_float(Xa)
+        nf = Xa.shape[1]
+        da = np.zeros((Xa.shape[0], nf), int) if da is None else np.asarray(da)
+        if Xb is None:
+            return deriv_cov(cov_fn, Xa, da, value_block_fn=value_block)
+        Xb = _as_float(Xb)
+        db = np.zeros((Xb.shape[0], nf), int) if db is None else np.asarray(db)
+        return deriv_cov(cov_fn, Xa, da, Xb, db, value_block_fn=value_block)
+
+    def _derivatized_basis(self, X, d):
+        """The mean basis with row i differentiated to orders ``d[i]``,
+        consistent with the derivative correlation blocks."""
+        return deriv_basis(lambda x: self._basis(x[None, :])[0],
+                           _as_float(X), np.asarray(d))
+
+    def _derivatized_basis_train(self, X):
+        return self._derivatized_basis(X, np.asarray(self.dorders_))
+
+    def _normalize_predict_dorders(self, X, dorders):
+        return _normalize_predict_dorders_for(self.kernel_, self._fit, X,
+                                              dorders)
+
     def _lml(self, kernel, theta, X, y2, basis):
         """The log-marginal likelihood at ``theta`` (a tensor), as a
-        differentiable 0-d tensor; each model class writes its own."""
+        differentiable 0-d tensor; each model class writes its own.  With
+        derivative training data the rows of ``X`` carry ``dorders_``."""
         raise NotImplementedError
 
     def _lml_and_grad(self, kernel, theta, X, y2, basis, eval_gradient):
@@ -329,11 +408,26 @@ class BaseConjugateProcess:
             theta = self._kernel_for_lml().theta
 
         kernel = self._kernel_for_lml()
+        X_is_train = X is None
         X = self._points(self.X_train_ if X is None else X)
         y = self._tensor(self.y_train_ if y is None else y)
         y2 = y[:, None] if y.ndim == 1 else y
+        if self.dorders_ is None:
+            basis = self._basis(X)
+        elif X_is_train:
+            basis = self.basis_train_      # derivatized by fit
+        else:
+            # every row of X carries the fitted orders, so X must match
+            # them row for row and its basis is derivatized the same way
+            if X.shape[0] != np.asarray(self.dorders_).shape[0]:
+                raise ValueError(
+                    'this model was fitted with derivative observation '
+                    'orders for %d rows; log_marginal_likelihood(X=...) '
+                    'got %d rows' % (np.asarray(self.dorders_).shape[0],
+                                     X.shape[0]))
+            basis = self._derivatized_basis_train(X)
         return self._lml_and_grad(kernel, self._tensor(theta), X, y2,
-                                  self._basis(X), eval_gradient)
+                                  basis, eval_gradient)
 
     # ------------------------------------------------------------------
     # Kernel calibration
@@ -393,10 +487,15 @@ class BaseConjugateProcess:
     def fit(self, X, y, dorders=None):
         R"""Fits the process to data (X, y) and updates all hyperparameters.
 
-        ``dorders`` with a non-zero order (derivative observations) raises
-        ``NotImplementedError`` until ``derivs`` is ported.
+        ``dorders``: per-dimension derivative orders of each observation
+        row — ``y[i]`` is then an observation of :math:`\partial^{dorders[i]}
+        f` at ``X[i]``.  Differentiation is linear, so the joint vector of
+        values and derivatives is Gaussian with the cross-covariances of
+        :mod:`gsum_tpu_torch.derivs` as its correlation matrix and the
+        derivatized basis as its basis, and the conjugate updates apply
+        unchanged; predictions are of the value process.  Incompatible
+        with ``WhiteKernel`` terms (use ``nugget`` for uniform noise).
         """
-        _no_derivatives(dorders, 'fit')
         if self.kernel is None:
             self.kernel_ = self._default_kernel.clone()
         else:
@@ -404,14 +503,30 @@ class BaseConjugateProcess:
 
         X = self._points(X)
         y = self._tensor(y)
-        self.dorders_ = None
+        if dorders is not None:
+            dorders = normalize_orders(dorders, X.shape[0], X.shape[1])
+            if not np.any(dorders):
+                dorders = None      # all values: the plain path
+            else:
+                _check_kernel_orders(self.kernel_, dorders)
+                if _contains_white(self.kernel_):
+                    raise ValueError(
+                        'derivative training data is incompatible with '
+                        'WhiteKernel terms (a delta correlation has no '
+                        'derivative observations) — drop the WhiteKernel '
+                        'and use the nugget parameter for uniform '
+                        'observation noise')
+        self.dorders_ = dorders
         if self.copy_X_train:
             self.X_train_ = X.clone()
             self.y_train_ = y.clone()
         else:
             self.X_train_ = X
             self.y_train_ = y
-        self.basis_train_ = self._basis(self.X_train_)
+        if dorders is None:
+            self.basis_train_ = self._basis(self.X_train_)
+        else:
+            self.basis_train_ = self._derivatized_basis_train(self.X_train_)
 
         self._calibrate_kernel()
 
@@ -437,7 +552,7 @@ class BaseConjugateProcess:
     def _fit_state(self, kernel, theta, X, y2, basis):
         """The fitted posterior state at ``theta``."""
         decomposition = self.decomposition
-        R = kernel.value_fn(theta, X, None)
+        R = self._wrap_corr_fn(kernel.value_fn)(theta, X, None)
         N = X.shape[0]
         R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
         if decomposition == 'cholesky':
@@ -478,19 +593,21 @@ class BaseConjugateProcess:
 
         ``Xc`` / ``y`` override the conditioning set without affecting the
         hyperparameter updates; before ``fit`` the prior is returned.
-        ``dorders`` with a non-zero order raises ``NotImplementedError``
-        until ``derivs`` is ported.
+        ``dorders``: per-dimension derivative orders of each PREDICTION
+        row — the posterior of :math:`\partial^{d} f` at ``X`` (fitted
+        models only; derivative training data composes with it).
         """
         if return_std and return_cov:
             raise RuntimeError('Only one of return_std or return_cov may be True')
 
         X = self._points(X)
-        _no_derivatives(dorders, 'predict')
+        d_new = self._normalize_predict_dorders(X, dorders)
 
         if not self._fit:
             return self.underlying_properties(X=X, return_std=return_std,
                                               return_cov=return_cov)
 
+        d_train = self.dorders_ if Xc is None else None
         if Xc is None:
             Xc = self.X_train_
             sqrt_R = self._sqrt_R_train()
@@ -510,10 +627,19 @@ class BaseConjugateProcess:
         y2 = y[:, None] if y.ndim == 1 else y
         var = self.compute_cov_factor(scale_sq=self.scale_ ** 2, df=self.df_)
         with torch.no_grad():
+            # derivative rows on either side: order-aware correlation
+            # blocks and a basis derivatized the same way
+            R_on = R_nn = None
+            basis_new = self._basis(X)
+            if d_train is not None or d_new is not None:
+                R_on = self._deriv_cross_corr(Xc, d_train, X, d_new)
+            if d_new is not None:
+                R_nn = self._deriv_cross_corr(X, d_new)
+                basis_new = self._derivatized_basis(X, d_new)
             return self._predict_core(
                 self._theta(), Xc, X, y2, sqrt_R, self.center_, var,
-                basis_old, self._basis(X), return_std, return_cov, pred_noise,
-                *self._fused_extra())
+                basis_old, basis_new, return_std, return_cov, pred_noise,
+                *self._fused_extra(), R_on=R_on, R_nn=R_nn)
 
     # subclasses whose prediction adds terms set this: the Student-t
     # process ('tp') adds the mean-uncertainty term
@@ -525,14 +651,18 @@ class BaseConjugateProcess:
         return ()
 
     def _predict_core(self, theta, Xc, X, y2, sqrt_R, center, var, basis_old,
-                      basis_new, return_std, return_cov, pred_noise, *extra):
-        """The prediction, conditioned on (Xc, y2) with the factor sqrt_R."""
+                      basis_new, return_std, return_cov, pred_noise, *extra,
+                      R_on=None, R_nn=None):
+        """The prediction, conditioned on (Xc, y2) with the factor sqrt_R.
+        ``R_on`` / ``R_nn`` (derivative blocks) replace the kernel's
+        value blocks where given."""
         kind = type(self)._fused_kind
         decomp = self.decomposition
         kernel = self.kernel_
         m_old = basis_old @ center
         m_new = basis_new @ center
-        R_on = kernel.value_fn(theta, Xc, X)
+        if R_on is None:
+            R_on = kernel.value_fn(theta, Xc, X)
         R_no = R_on.mT
         alpha = solve_sqrt(sqrt_R, y2 - m_old[:, None], decomposition=decomp)
         m_pred = torch.squeeze(m_new[:, None] + R_no @ alpha)
@@ -545,7 +675,8 @@ class BaseConjugateProcess:
             mean_cov = var * (basis_cond @ disp @ basis_cond.mT)
         if not (return_std or return_cov):
             return m_pred
-        R_nn = kernel.value_fn(theta, X, None)
+        if R_nn is None:
+            R_nn = kernel.value_fn(theta, X, None)
         R_pred = R_nn - R_no @ solve_sqrt(sqrt_R, R_on, decomposition=decomp)
         if pred_noise:
             R_pred = R_pred + self.nugget * torch.eye(
@@ -664,7 +795,7 @@ class ConjugateGaussianProcess(BaseConjugateProcess):
         center0, disp0 = self.center0, self.disp0
         df0, scale0 = self.df0, self.scale0
         N = X.shape[0]
-        R = kernel.value_fn(theta, X, None)
+        R = self._wrap_corr_fn(kernel.value_fn)(theta, X, None)
         R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
         sqrt_R, ok = _safe_sqrt_R(R_reg, decomposition,
                                   _resolve_chol_fn(self.chol_engine))
@@ -785,7 +916,7 @@ class ConjugateStudentProcess(BaseConjugateProcess):
         df0, scale0 = self.df0, self.scale0
         disp0_zero = bool(np.all(np.asarray(disp0) == 0))
         N, ny = X.shape[0], y.shape[1]
-        R = kernel.value_fn(theta, X, None)
+        R = self._wrap_corr_fn(kernel.value_fn)(theta, X, None)
         R_reg = R + self.nugget * torch.eye(N, dtype=R.dtype, device=R.device)
         sqrt_R, ok = _safe_sqrt_R(R_reg, decomposition,
                                   _resolve_chol_fn(self.chol_engine))
@@ -912,17 +1043,58 @@ class TruncationProcess:
             return y_mean, torch.sqrt(torch.diag(self.cov(X, start=order + 1)))
         return y_mean
 
+    def _trunc_scalar_fns(self, start, end):
+        """One-point forms of :meth:`mean`, :meth:`cov` and :meth:`basis`
+        of the sum of orders in [start, end], for derivative observations:
+        each takes ``(n_features,)`` points and reproduces the matrix form,
+        with the x-dependence of ``ratio`` / ``ref`` and, for a Student-t
+        coefficient process, the basis-dispersion term of its covariance."""
+        proc = self.coeffs_process
+        ratio_kws = self.ratio_kws
+        excluded = self.excluded
+
+        def cov_fn(x, xp):
+            X1, X2 = x[None, :], xp[None, :]
+            ratio_mat = self._ratio(X1, **ratio_kws)[:, None] \
+                * self._ratio(X2, **ratio_kws)
+            rsum = geometric_sum(x=ratio_mat, start=start, end=end,
+                                 excluded=excluded)
+            ref_mat = self._ref(X1)[:, None] * self._ref(X2)
+            return (ref_mat * rsum * proc.cov(X=X1, Xp=X2))[0, 0]
+
+        def mean_fn(x):
+            X1 = x[None, :]
+            rsum = geometric_sum(x=self._ratio(X1, **ratio_kws), start=start,
+                                 end=end, excluded=excluded)
+            return (self._ref(X1) * rsum * proc.mean(X=X1))[0]
+
+        def basis_fn(x):
+            return self.basis(X=x[None, :], start=start, end=end)[0]
+
+        return cov_fn, mean_fn, basis_fn
+
+    def _deriv_constraint_ctx(self, X, order):
+        """The derivative-constrained conditioning's shared setup (for
+        :meth:`predict` and ``TruncationTP.predict``): the constraint
+        points, their orders, zero orders for the prediction points, and
+        the one-point truncation-band functions."""
+        Xd = _as_float(self.dX_)
+        zeros_n = np.zeros((X.shape[0], Xd.shape[1]), dtype=int)
+        fns = self._trunc_scalar_fns(start=order + 1, end=np.inf)
+        return (Xd, self.dderivs_, zeros_n) + fns
+
     def fit(self, X, y, orders, dX=None, dy=None, dderivs=None):
         """Extracts the coefficients and fits the coefficient process.
 
         ``(dX, dy)`` constrain the truncation error to ``dy`` at ``dX``.
-        ``dderivs`` with a non-zero order (derivative constraints) raises
-        ``NotImplementedError`` until ``derivs`` is ported.
+        ``dderivs``: per-dimension derivative orders of the constraints —
+        ``dderivs=[[1]]`` makes ``dy[0]`` a constraint on the slope of the
+        truncation error at ``dX[0]``; None or zeros are value
+        constraints.  Their cross-covariances are derivatives of the whole
+        truncation covariance (with the x-dependence of ``ratio`` /
+        ``ref``) taken by ``torch.func``, so ``ratio`` / ``ref`` callables
+        must then be torch-traceable.
         """
-        if dderivs is not None:
-            if dX is None:
-                raise ValueError('dderivs requires constraint points dX')
-            _no_derivatives(dderivs, 'fit', 'dderivs')
         X = self._points(X)
         y = self.coeffs_process._tensor(y)
         orders = np.asarray(orders)
@@ -933,7 +1105,21 @@ class TruncationProcess:
 
         self.dX_ = None if dX is None else self._points(dX)
         self.dy_ = None if dy is None else self.coeffs_process._tensor(dy)
-        self.dderivs_ = None
+        if dderivs is not None:
+            if dX is None:
+                raise ValueError('dderivs requires constraint points dX')
+            dderivs = normalize_orders(dderivs, self.dX_.shape[0],
+                                       self.dX_.shape[1])
+            if not np.any(dderivs):
+                dderivs = None      # all zero: value constraints
+            else:
+                # beyond the kernel's differentiability the coincident
+                # limits (the constraint covariance's diagonal) do not
+                # exist and the Taylor guards would return 0 variance
+                k_check = (self.kernel if self.kernel is not None
+                           else self.coeffs_process._default_kernel)
+                _check_kernel_orders(k_check, dderivs)
+        self.dderivs_ = dderivs
 
         ratio = self._ratio(X, **self.ratio_kws)
         ref = self._ref(X)
@@ -947,6 +1133,11 @@ class TruncationProcess:
         self._fit = True
         return self
 
+    def _normalize_predict_dorders(self, X, dorders):
+        return _normalize_predict_dorders_for(
+            self.coeffs_process.kernel_ if self._fit else None, self._fit,
+            X, dorders)
+
     def predict(self, X, order, return_std=False, return_cov=False, Xc=None,
                 y=None, pred_noise=False, kind='both', dorders=None,
                 _parts_out=None):
@@ -954,14 +1145,17 @@ class TruncationProcess:
 
         ``kind`` selects the interpolant ('interp'), the truncation error
         ('trunc'), or their sum ('both').  ``pred_noise`` is accepted and
-        ignored, as in the JAX package.  ``dorders`` with a non-zero order
-        raises ``NotImplementedError`` until ``derivs`` is ported.
-        ``_parts_out`` (private): a dict that receives the jitter-ladder
-        factors and the constraint cross-covariance, so that
-        ``TruncationTP.predict`` reuses them.
+        ignored, as in the JAX package.  ``dorders``: per-dimension
+        derivative orders of each prediction row — the posterior of that
+        partial derivative of the selected band (the slope of the
+        truncation error, say), differentiated through the whole summed
+        process with x-dependent ``ratio`` / ``ref``, which must then be
+        torch-traceable.  ``_parts_out`` (private): a dict that receives
+        the jitter-ladder factors and the constraint cross-covariance, so
+        that ``TruncationTP.predict`` reuses them.
         """
         X = self._points(X)
-        _no_derivatives(dorders, 'predict')
+        d_new = self._normalize_predict_dorders(X, dorders)
         if not self._fit:
             return self.underlying_properties(X, order, return_cov=return_cov,
                                               return_std=return_std)
@@ -986,9 +1180,25 @@ class TruncationProcess:
             # Xp given: no white-noise term (a noise-free Gram matrix), so
             # the jitter ladder decides the factor
             K_oo = self.cov(start=0, end=order, X=Xc, Xp=Xc)
-            m_new = self.mean(X=X, start=0, end=order)
-            K_on = self.cov(start=0, end=order, X=Xc, Xp=X)
-            K_nn = self.cov(start=0, end=order, X=X, Xp=X)
+            if d_new is not None:
+                # derivative prediction rows: the summed process's mean and
+                # covariance differentiated (the conditioning rows are
+                # values)
+                cov_i, mean_i, _ = self._trunc_scalar_fns(start=0, end=order)
+
+                def vb_i(A, B):
+                    return self.cov(start=0, end=order, X=A, Xp=B)
+
+                m_new = deriv_mean(mean_i, X, d_new)
+                K_on = deriv_cov(cov_i, Xc, None, X, d_new,
+                                 value_block_fn=vb_i)
+                K_nn = deriv_cov(cov_i, X, d_new, value_block_fn=vb_i)
+                if _parts_out is not None:
+                    _parts_out['K_on_interp'] = K_on
+            else:
+                m_new = self.mean(X=X, start=0, end=order)
+                K_on = self.cov(start=0, end=order, X=Xc, Xp=X)
+                K_nn = self.cov(start=0, end=order, X=X, Xp=X)
             K_no = K_on.mT
 
             # one jitter-ladder factorization serves every K_oo solve
@@ -1001,16 +1211,52 @@ class TruncationProcess:
                 K_pred = K_pred + K_nn - K_no @ robust_cho_solve(Lok_oo, K_on)
 
         if kind in ('both', 'trunc'):
-            m_new_trunc = self.mean(X=X, start=order + 1, end=np.inf)
-            K_nn_trunc = self.cov(X=X, Xp=X, start=order + 1, end=np.inf)
+            if d_new is not None:
+                cov_t, mean_t, _ = self._trunc_scalar_fns(start=order + 1,
+                                                          end=np.inf)
+
+                def vb_t(A, B):
+                    return self.cov(start=order + 1, end=np.inf, X=A, Xp=B)
+
+                m_new_trunc = deriv_mean(mean_t, X, d_new)
+                K_nn_trunc = deriv_cov(cov_t, X, d_new, value_block_fn=vb_t)
+            else:
+                m_new_trunc = self.mean(X=X, start=order + 1, end=np.inf)
+                K_nn_trunc = self.cov(X=X, Xp=X, start=order + 1, end=np.inf)
 
             X_trunc = self.dX_
             if X_trunc is not None:  # the truncation error is constrained
-                m_old_trunc = self.mean(X=X_trunc, start=order + 1, end=np.inf)
-                K_oo_trunc = self.cov(X=X_trunc, Xp=X_trunc, start=order + 1,
-                                      end=np.inf)
-                K_on_trunc = self.cov(X=X_trunc, Xp=X, start=order + 1,
-                                      end=np.inf)
+                if self.dderivs_ is not None or d_new is not None:
+                    # derivative rows on either side: derivative
+                    # cross-covariances of the whole truncation covariance;
+                    # value-by-value blocks through the matrix form
+                    Xd, dd, zeros_n, cov_fn, mean_fn, _ = \
+                        self._deriv_constraint_ctx(X, order)
+
+                    def vb_c(A, B):
+                        return self.cov(X=A, Xp=B, start=order + 1,
+                                        end=np.inf)
+
+                    if dd is None:
+                        m_old_trunc = self.mean(X=X_trunc, start=order + 1,
+                                                end=np.inf)
+                        K_oo_trunc = self.cov(X=X_trunc, Xp=X_trunc,
+                                              start=order + 1, end=np.inf)
+                    else:
+                        m_old_trunc = deriv_mean(mean_fn, Xd, dd)
+                        K_oo_trunc = deriv_cov(cov_fn, Xd, dd,
+                                               value_block_fn=vb_c)
+                    K_on_trunc = deriv_cov(
+                        cov_fn, Xd, dd, X,
+                        zeros_n if d_new is None else d_new,
+                        value_block_fn=vb_c)
+                else:
+                    m_old_trunc = self.mean(X=X_trunc, start=order + 1,
+                                            end=np.inf)
+                    K_oo_trunc = self.cov(X=X_trunc, Xp=X_trunc,
+                                          start=order + 1, end=np.inf)
+                    K_on_trunc = self.cov(X=X_trunc, Xp=X, start=order + 1,
+                                          end=np.inf)
                 K_no_trunc = K_on_trunc.mT
                 Lok_trunc = robust_cholesky(K_oo_trunc)
                 if _parts_out is not None:
@@ -1034,6 +1280,25 @@ class TruncationProcess:
             return m_pred, torch.sqrt(torch.clamp(torch.diag(K_pred), min=0.0))
         return m_pred
 
+    def _joint_lml(self, theta, X, y, orders, **ratio_kws):
+        """The joint log-likelihood of (θ, ratio) as a differentiable 0-d
+        tensor, in θ and in the tensors of ``ratio_kws`` (the sampler's
+        target)."""
+        cp = self.coeffs_process
+        ref = self._ref(X)
+        ratio = self._ratio(X, **ratio_kws)
+        orders_mask = ~np.isin(orders, self.excluded)
+        coeffs = _columns(coefficients(y=y, ratio=ratio, ref=ref, orders=orders),
+                          orders_mask)
+        coeff_log_like = cp._lml(cp._kernel_for_lml(), theta, X, coeffs,
+                                 cp._basis(X))
+        orders_in = orders[orders_mask]
+        n = len(orders_in)
+        det_factor = torch.sum(n * torch.log(torch.abs(ref))
+                               + float(np.sum(orders_in))
+                               * torch.log(torch.abs(ratio)))
+        return coeff_log_like - det_factor
+
     def log_marginal_likelihood(self, theta, eval_gradient=False, X=None, y=None,
                                 orders=None, **ratio_kws):
         R"""Joint log-likelihood of (θ, ratio) with the change-of-variables
@@ -1044,28 +1309,17 @@ class TruncationProcess:
         X = self.X_train_ if X is None else self._points(X)
         y = self.y_train_ if y is None else self.coeffs_process._tensor(y)
         orders = self.orders_ if orders is None else np.asarray(orders)
-        ref = self._ref(X)
-        ratio = self._ratio(X, **ratio_kws)
-
-        orders_mask = ~np.isin(orders, self.excluded)
-        coeffs = _columns(coefficients(y=y, ratio=ratio, ref=ref, orders=orders),
-                          orders_mask)
-        result = self.coeffs_process.log_marginal_likelihood(
-            theta, eval_gradient=eval_gradient, X=X, y=coeffs)
-        if eval_gradient:
-            coeff_log_like, coeff_log_like_gradient = result
-        else:
-            coeff_log_like = result
-
-        orders_in = orders[orders_mask]
-        n = len(orders_in)
-        det_factor = torch.sum(n * torch.log(torch.abs(ref))
-                               + float(np.sum(orders_in))
-                               * torch.log(torch.abs(ratio)))
-        y_log_like = coeff_log_like - det_factor
-        if eval_gradient:
-            return y_log_like, coeff_log_like_gradient
-        return y_log_like
+        theta = self.coeffs_process._tensor(theta)
+        if not eval_gradient:
+            with torch.no_grad():
+                return self._joint_lml(theta, X, y, orders, **ratio_kws)
+        theta = theta.detach().requires_grad_(True)
+        with torch.enable_grad():
+            lml = self._joint_lml(theta, X, y, orders, **ratio_kws)
+            (grad,) = torch.autograd.grad(lml, theta, allow_unused=True)
+        if grad is None:            # no free hyperparameter reaches the lml
+            grad = torch.zeros_like(theta)
+        return lml.detach(), grad
 
 
 class TruncationGP(TruncationProcess):
@@ -1092,9 +1346,10 @@ class TruncationTP(TruncationProcess):
     def predict(self, X, order, return_std=False, return_cov=False, Xc=None,
                 y=None, pred_noise=False, kind='both', dorders=None):
         """Adds the marginalized-mean covariance, with conditional bases for
-        the interpolant and for the (constrained) truncation error.  Before
-        ``fit`` the prior is returned unchanged: the coefficient process's
-        prior covariance already holds var·(B V₀ Bᵀ)."""
+        the interpolant and for the (constrained) truncation error, each
+        derivatized where derivative rows take part.  Before ``fit`` the
+        prior is returned unchanged: the coefficient process's prior
+        covariance already holds var·(B V₀ Bᵀ)."""
         parts = {}
         pred = super().predict(X=X, order=order, return_std=return_std,
                                return_cov=return_cov, Xc=Xc, y=y,
@@ -1107,6 +1362,7 @@ class TruncationTP(TruncationProcess):
             return pred
 
         X = self._points(X)
+        d_new = self._normalize_predict_dorders(X, dorders)
         Xc = self.X_train_ if Xc is None else self._points(Xc)
 
         var = self.coeffs_process.cov_factor_
@@ -1115,17 +1371,32 @@ class TruncationTP(TruncationProcess):
             (X.shape[0], disp.shape[0]), dtype=disp.dtype, device=disp.device)
 
         if kind in ('both', 'interp'):
-            K_no = self.cov(X=X, Xp=Xc, start=0, end=order)
-            basis_lower_new = self.basis(X=X, start=0, end=order)
+            if d_new is not None:
+                K_no = parts['K_on_interp'].mT
+                _, _, basis_i = self._trunc_scalar_fns(start=0, end=order)
+                basis_lower_new = deriv_basis(basis_i, X, d_new)
+            else:
+                K_no = self.cov(X=X, Xp=Xc, start=0, end=order)
+                basis_lower_new = self.basis(X=X, start=0, end=order)
             basis_lower_old = self.basis(X=Xc, start=0, end=order)
             basis_lower = basis_lower_new \
                 - K_no @ robust_cho_solve(parts['Lok_oo'], basis_lower_old)
 
         if kind in ('both', 'trunc'):
-            basis_trunc = self.basis(X=X, start=order + 1, end=np.inf)
+            if d_new is not None:
+                _, _, basis_t = self._trunc_scalar_fns(start=order + 1,
+                                                       end=np.inf)
+                basis_trunc = deriv_basis(basis_t, X, d_new)
+            else:
+                basis_trunc = self.basis(X=X, start=order + 1, end=np.inf)
             if self.dX_ is not None:
-                basis_trunc_old = self.basis(X=self.dX_, start=order + 1,
-                                             end=np.inf)
+                if self.dderivs_ is not None or d_new is not None:
+                    Xd, dd, _, _, _, basis_fn = \
+                        self._deriv_constraint_ctx(X, order)
+                    basis_trunc_old = deriv_basis(basis_fn, Xd, dd)
+                else:
+                    basis_trunc_old = self.basis(X=self.dX_, start=order + 1,
+                                                 end=np.inf)
                 basis_trunc = basis_trunc - parts['K_no_trunc'] @ \
                     robust_cho_solve(parts['Lok_trunc'], basis_trunc_old)
 

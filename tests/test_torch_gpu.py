@@ -5,7 +5,9 @@ through the diagonal kernel, their gradients against an f64
 ``torch.linalg`` autograd reference; the conjugate GP's lml and gradient
 on the card against the CPU; the incomplete-beta kernels against their plain
 versions, and the t quantile, ``TruncationPointwise`` and ``Diagnostic`` on
-the card against the CPU.  Marked ``gpu``: every test skips where there is
+the card against the CPU; the batched engines and sweeps; derivative
+covariances, ``GraphicalDiagnostic``'s data, one HMC proposal and a
+checkpoint round trip on the card.  Marked ``gpu``: every test skips where there is
 no CUDA card.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -717,3 +719,140 @@ def test_hier_engine_through_the_kernel(cuda):
     Lref = torch.linalg.cholesky(K.double())
     assert (L.double() - Lref).abs().max().item() < \
         1e-5 * Lref.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# model checking, derivative observations and sampling
+# ----------------------------------------------------------------------
+
+def test_derivative_covariance_on_the_card(cuda):
+    """The per-pair vmap(grad(grad)) of ``kernel_deriv_cov`` (orders 0-2,
+    RBF and Matern 2.5) and a derivative-constrained lml gradient on the
+    card against the CPU: 1e-12 relative (the same operations; the
+    gradient at cond(R)·1e-15)."""
+    x = np.linspace(0.0, 1.0, 9)[:, None]
+    d = np.arange(9) % 3
+    for k in (gt.RBF(0.4), gt.Matern(0.6, nu=2.5)):
+        got = gt.derivs.kernel_deriv_cov(k, torch.tensor(x, device=cuda), d)
+        want = gt.derivs.kernel_deriv_cov(k, torch.tensor(x), d)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-12,
+                                   atol=1e-12 * want.abs().max().item())
+    y = np.sin(3 * x[:, 0])
+    out = []
+    for dev in (cuda, 'cpu'):
+        gp = gt.ConjugateGaussianProcess(
+            gt.ConstantKernel(1.0, (1e-2, 1e2)) * gt.RBF(0.3, (1e-2, 10)),
+            nugget=1e-8, optimizer=None, device=dev)
+        gp.fit(torch.tensor(x, device=dev), torch.tensor(y, device=dev),
+               dorders=d % 2)
+        lml, g = gp.log_marginal_likelihood(np.log([1.2, 0.25]),
+                                            eval_gradient=True)
+        out.append((lml.item(), g.cpu().numpy(),
+                    np.linalg.cond(gp.corr_.cpu().numpy())))
+    (l1, g1, c), (l2, g2, _) = out
+    assert abs(l1 - l2) <= c * 1e-15 * abs(l2)
+    np.testing.assert_allclose(g1, g2, rtol=c * 1e-15)
+
+
+def test_graphical_diagnostic_data_on_the_card(cuda):
+    """QQ envelopes, coverage bands and the MD² reference grid of a
+    Student-t ``GraphicalDiagnostic`` on the card against the CPU, the
+    card's draws put into the CPU object: cond(cov)·1e-14 relative for
+    whitened errors, 1e-12 for the t / F quantiles."""
+    rng = np.random.RandomState(5)
+    n = 64
+    Q = np.linalg.qr(rng.randn(n, n))[0]
+    cov = (Q * np.geomspace(1.0, 1e-3, n)) @ Q.T
+    mean = rng.randn(n)
+    y = mean[:, None] + np.linalg.cholesky(cov) @ rng.randn(n, 3)
+    colors = ['C0', 'C1', 'C2']
+    g_card = gt.GraphicalDiagnostic(y, mean, cov, df=6.0, nref=200,
+                                    colors=colors, device=cuda)
+    g_cpu = gt.GraphicalDiagnostic(y, mean, cov, df=6.0, nref=2,
+                                   colors=colors, device='cpu')
+    g_cpu.samples = g_card.samples.cpu()
+    tol = np.linalg.cond(cov) * 1e-14
+    for name in ('individual', 'cholesky', 'pivoted_cholesky'):
+        a, b = g_card.qq_band_data(name), g_cpu.qq_band_data(name)
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-12)
+        np.testing.assert_allclose(a[1], b[1], rtol=tol, atol=tol)
+        for (lo, hi), (lo2, hi2) in zip(a[2], b[2]):
+            np.testing.assert_allclose(lo, lo2, rtol=tol, atol=tol)
+            np.testing.assert_allclose(hi, hi2, rtol=tol, atol=tol)
+    iv = np.linspace(0.1, 0.9, 9)
+    (c1, b1), (c2, b2) = g_card.coverage_band_data(iv), \
+        g_cpu.coverage_band_data(iv)
+    np.testing.assert_allclose(c1, c2, rtol=1e-15)
+    for (lo, hi), (lo2, hi2) in zip(b1, b2):
+        np.testing.assert_allclose(lo, lo2, rtol=1e-15)
+        np.testing.assert_allclose(hi, hi2, rtol=1e-15)
+    for a, b in zip(g_card._dist_grid(g_card.md_ref_dist),
+                    g_cpu._dist_grid(g_cpu.md_ref_dist)):
+        np.testing.assert_allclose(a, b, rtol=1e-12)
+
+
+def test_one_hmc_step_on_the_card(cuda):
+    """One proposal of 4 chains on the lml of a GP on the card against the
+    same proposal on the CPU with the same draws: 10·cond(R)·ε relative,
+    with the largest condition number of R + nugget·I at the chains'
+    start and end (the lml gradient's agreement)."""
+    from gsum_tpu_torch import sample as ts
+    from gsum_tpu_torch.optimize import _to_bounded
+
+    x = np.linspace(0, 1, 16)[:, None]
+    y = np.sin(3 * x[:, 0])
+    draws = np.random.RandomState(1)
+    z0, jit, p, u = (draws.randn(4, 1) * 0.3 - 1.0, draws.rand(4),
+                     draws.randn(4, 1), draws.rand(4))
+    out = []
+    for dev in (cuda, 'cpu'):
+        gp = gt.ConjugateGaussianProcess(gt.RBF(0.3, (0.05, 2.0)),
+                                         nugget=1e-8, optimizer=None,
+                                         device=dev)
+        gp.fit(torch.tensor(x, device=dev), torch.tensor(y, device=dev))
+        lo = torch.tensor([np.log(0.05)], device=dev, dtype=torch.float64)
+        hi = torch.tensor([np.log(2.0)], device=dev, dtype=torch.float64)
+        k = gp.kernel_.clone()
+
+        def ld(z, gp=gp, k=k, lo=lo, hi=hi):
+            th = _to_bounded(z, lo, hi)
+            return gp._lml(k, th, gp.X_train_, gp.y_train_[:, None],
+                           gp.basis_train_) \
+                + torch.sum(ts._log_jac_bounded(z, lo, hi))
+
+        gv = torch.func.vmap(torch.func.grad_and_value(ld))
+        t = [torch.tensor(a, device=dev) for a in (z0, jit, p, u)]
+        g, lp = gv(t[0])
+        eps = torch.full((4,), 0.1, dtype=torch.float64, device=dev)
+        res = ts._proposal(gv, t[0], lp, g, eps, t[1], t[2], t[3], 6)
+        out.append([r.cpu().numpy() for r in res])
+    lo_b, hi_b = np.log(0.05), np.log(2.0)
+    ells = np.exp(lo_b + (hi_b - lo_b) / (1 + np.exp(-np.concatenate(
+        [z0[:, 0], out[1][0][:, 0]]))))
+    cond = max(np.linalg.cond(np.exp(-0.5 * (x - x.T) ** 2 / ell ** 2)
+                              + 1e-8 * np.eye(len(x))) for ell in ells)
+    tol = 10 * cond * np.finfo(float).eps
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol * np.abs(b).max())
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A TruncationGP with a slope constraint fitted on the card, saved
+    and loaded into a new model on the card: predictions bit for bit."""
+    x = np.linspace(0, 1, 12)[:, None]
+    yn = gt.partials(torch.tensor(np.sin(3 * x + np.arange(3))), 0.5,
+                     orders=np.arange(3)).numpy()
+
+    def make():
+        return gt.TruncationGP(gt.RBF(0.2, (1e-2, 10)), ratio=0.5,
+                               nugget=1e-10, device=cuda)
+
+    m = make().fit(x, yn, np.arange(3), dX=[[1.0], [1.0]], dy=[0.0, 0.0],
+                   dderivs=[[0], [1]])
+    gt.checkpoint.save(str(tmp_path / 'm'), m)
+    m2 = gt.checkpoint.load(str(tmp_path / 'm'), make())
+    xn = torch.tensor(np.linspace(0, 1.1, 7)[:, None], device=cuda)
+    for a, b in zip(m.predict(xn, 1, return_std=True),
+                    m2.predict(xn, 1, return_std=True)):
+        assert a.device.type == 'cuda' and torch.equal(a, b)

@@ -245,12 +245,18 @@ def test_sample_y_shape_reproducibility_and_moments():
 
 
 def test_derivative_observations_are_not_ported_yet():
-    _, tm = models('V0=0', optimizer=None)
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.fit(_t(X), _t(Y), dorders=np.ones((N, 1), int))
-    tm.fit(_t(X), _t(Y), dorders=np.zeros((N, 1), int))
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.predict(_t(XNEW), dorders=np.ones((7, 1), int))
+    """Derivative observations are ported (``tests/test_torch_models_derivs.py``);
+    with this file's kernel, which has a WhiteKernel term, both packages
+    refuse them with the same error, and all-zero orders are the plain
+    path."""
+    jm, tm = models('V0=0', optimizer=None)
+    for model, conv in ((jm, np.asarray), (tm, _t)):
+        with pytest.raises(ValueError, match='incompatible with WhiteKernel'):
+            model.fit(conv(X), conv(Y), dorders=np.ones((N, 1), int))
+        model.fit(conv(X), conv(Y), dorders=np.zeros((N, 1), int))
+        assert model.dorders_ is None
+        with pytest.raises(ValueError, match='incompatible with WhiteKernel'):
+            model.predict(conv(XNEW), dorders=np.ones((7, 1), int))
 
 
 def test_default_device_cuda_raises_without_a_card():

@@ -186,9 +186,12 @@ def test_cov_needs_df_above_two_and_derivatives_are_not_ported():
     for model in (jm, tm):
         with pytest.raises(ValueError, match='df must be greater than 2'):
             model.cov(XNEW if model is jm else _t(XNEW))
-    _, tm = models('V0=0', optimizer=None)
-    tm.fit(_t(X), _t(Y))
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.predict(_t(XNEW), dorders=np.ones((7, 1), int))
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.fit(_t(X), _t(Y), dorders=np.ones((N, 1), int))
+    # derivative observations are ported (test_torch_models_derivs.py);
+    # with this file's WhiteKernel term both packages refuse them alike
+    jm, tm = models('V0=0', optimizer=None)
+    for model, conv in ((jm, np.asarray), (tm, _t)):
+        model.fit(conv(X), conv(Y))
+        with pytest.raises(ValueError, match='incompatible with WhiteKernel'):
+            model.predict(conv(XNEW), dorders=np.ones((7, 1), int))
+        with pytest.raises(ValueError, match='incompatible with WhiteKernel'):
+            model.fit(conv(X), conv(Y), dorders=np.ones((N, 1), int))

@@ -123,9 +123,10 @@ def test_unfitted_predict_returns_the_prior():
 
 def test_errors_and_derivatives_not_ported():
     """JAX's errors (a 1-D y, an unknown kind, an order not fitted, dderivs
-    without dX), and the derivative arguments, which raise
-    ``NotImplementedError`` until ``derivs`` is ported (all-zero orders are
-    the plain path)."""
+    without dX), and the derivative arguments, now ported: with this
+    file's WhiteKernel term a derivative prediction is refused as in JAX,
+    a slope constraint is kept, and all-zero orders are the plain path
+    (their values are held to JAX in ``test_torch_models_derivs.py``)."""
     jm, tm = at_theta('TruncationGP', 0.1)
     for model, conv in ((jm, np.asarray), (tm, t)):
         with pytest.raises(ValueError, match='y must be 2d'):
@@ -137,14 +138,15 @@ def test_errors_and_derivatives_not_ported():
             model.predict(conv(XNEW), order=3, kind='all')
         with pytest.raises(ValueError, match='order must be in orders'):
             model.predict(conv(XNEW), order=7)
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.fit(t(X), t(Y), orders=ORDERS, dX=t(DX), dy=t(DY),
-               dderivs=[[1], [0]])
+    tm.fit(t(X), t(Y), orders=ORDERS, dX=t(DX), dy=t(DY),
+           dderivs=[[1], [0]])
+    np.testing.assert_array_equal(tm.dderivs_, [[1], [0]])
     tm.fit(t(X), t(Y), orders=ORDERS, dX=t(DX), dy=t(DY),
            dderivs=[[0], [0]])
     assert tm.dderivs_ is None
-    with pytest.raises(NotImplementedError, match='derivs'):
-        tm.predict(t(XNEW), order=3, dorders=np.ones((7, 1), int))
+    for model, conv in ((jm, np.asarray), (tm, t)):
+        with pytest.raises(ValueError, match='incompatible with WhiteKernel'):
+            model.predict(conv(XNEW), order=3, dorders=np.ones((7, 1), int))
 
 
 def test_to_torch_model_carries_the_settings_and_the_fitted_kernel(fitted):
