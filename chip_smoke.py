@@ -17,9 +17,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    - the incomplete-beta kernels ``ops.incbeta.betainc`` and ``betaincinv``
      at (4096, 5), f64 and f32, on the t quantile's arguments (a = df/2,
      b = 1/2) and the beta bands' (a, b up to about 4000);
-4. drives the ten paths once each, with every kernel's launch count set
-   to 0 just before and read just after (paths 8 and 9: around each of
-   their legs):
+4. drives the eleven paths once each, with every kernel's launch count
+   set to 0 just before and read just after (paths 8, 9 and 10: around
+   each of their legs):
    - ``ops.batched_chol_logpdf`` (blocked route, ``method='auto'``) at the
      headline size of ``bench.py`` (B=16, N=4096, d=2, m=8, f32), against an
      f64 reference pipeline and the same route with the plain diagonal
@@ -90,6 +90,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      ``sample_theta_posterior`` of path 3's CGP at N=512 and
      ``posterior_predictive`` at 32 points; C, ``checkpoint`` save → load,
      predictions bit for bit; D, ``profiling.time_fn`` of one lml;
+   - large N across devices (path 10), on meshes of 4 shards that repeat
+     the card: A, the 'batch' axis (``batched_lml_grid`` at N=4096 f32
+     with K1 in every shard's forward, its launches against the derived
+     count; ``batched_fit`` through JAX's per-fit route;
+     ``pointwise_evidence_grid``; ``batched_posterior_at`` and
+     ``batched_predict``), each against the unsharded call; B, the
+     'model' axis at N=16384 f64 (``sharded_kernel_lml``,
+     ``sharded_cgp_lml`` and its forward-mode gradient against the dense
+     route on the card and a central difference; the dense route's peak
+     memory beside the four shards' and beside one shard's alone on the
+     card, the others on the CPU) and ``sharded_cholesky`` /
+     ``sharded_mvn_lml`` at N=8192; C, ``sharded_fit`` at the JAX
+     package's validated configuration against the dense fixed-trip fit;
+     D, HMC on the mesh against the unsharded sampler; E,
+     ``entry.dryrun_multichip(4)``;
 5. times the pipelines, and each kernel against its plain version and the
    library call that computes the same function, with CUDA events (medians
    of 6 samples taken in alternating order, each sample one call, or ten
@@ -2489,6 +2504,395 @@ def sampling_path(trunc, model_a, card, device='cuda'):
     return launches
 
 
+# path 10: large N across devices, on one card: meshes that repeat cuda:0
+MESH_D = 4                         # shards on the 'batch' and 'model' axes
+MESH_GRID_G, MESH_FIT_B = 64, 256  # A: θ of the blocked sweep; leg A curves
+BIG_N, BIG_NUGGET = 16384, 1e-4    # B: path 3's recipe, its White as nugget
+CHOL_N = 8192                      # B: sharded_cholesky, sharded_mvn_lml
+BIG_FD_H = 1e-3                    # B: central-difference step in log ℓ
+SFIT_N, SFIT_MAXITER, SFIT_LS = 8192, 8, 5     # C: gsum_tpu/parallel/pchol.py:33-40
+SFIT_NUGGET, SFIT_THETA_TOL, SFIT_LML_TOL = 1e-8, 1e-5, 1e-9
+HMC_MESH = dict(n_warmup=10, n_samples=20, n_leapfrog=3)    # D
+HMC_MESH_N, HMC_MESH_CHECK, HMC_MESH_TOL = 512, 8, 1e-9     # D
+
+
+def square_data(n):
+    """Path 3's recipe at n points: n points of the unit square from
+    RandomState(0) and its 5 curves sin(3x₀ + k)·cos(2x₁) + 0.01·ε."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(n, GP_D)
+    y = np.stack([np.sin(3 * X[:, 0] + k) * np.cos(2 * X[:, 1])
+                  for k in range(GP_CURVES)], axis=1) \
+        + 0.01 * rng.randn(n, GP_CURVES)
+    return X, y
+
+
+def dense_kernel_lml(kernel, theta, X, y, nugget):
+    """log N(y | 0, K + nugget·I) by ``torch.linalg.cholesky`` of the whole
+    K, and Gershgorin's bound on K's condition number: its largest
+    absolute row sum over the nugget (K's kernel part is PSD)."""
+    K = kernel.value_fn(theta, X, None)
+    K.diagonal().add_(nugget)
+    cond = (K.abs().sum(1).max().item()) / nugget
+    L = torch.linalg.cholesky(K)
+    del K
+    w = torch.linalg.solve_triangular(L, y, upper=False)
+    return -0.5 * ((w ** 2).sum(0) + 2 * torch.log(L.diagonal()).sum()
+                   + X.shape[0] * math.log(2 * math.pi)), cond
+
+
+def mesh_path(card, device='cuda'):
+    """Path 10: meshes of 4 shards on the one card.  A, the 'batch' axis:
+    ``batched_lml_grid`` at N=4096 f32 (blocked, K1 in every shard's
+    forward; its launches against the count derived from the code),
+    ``batched_fit`` (JAX's per-fit route), ``pointwise_evidence_grid``,
+    ``batched_posterior_at`` and ``batched_predict``, each against the
+    unsharded call; B, the 'model' axis at N=16384 f64 (on-shard lml, the
+    CGP lml and its forward-mode gradient against the dense route on the
+    card and a central difference, each shard's memory beside the dense
+    route's) and ``sharded_cholesky`` / ``sharded_mvn_lml`` at N=8192; C,
+    ``sharded_fit`` at JAX's validated configuration against the dense
+    fixed-trip fit; D, HMC on the mesh against the unsharded sampler; E,
+    ``entry.dryrun_multichip(4)``."""
+    import gsum_tpu_torch as gt
+    from gsum_tpu_torch.entry import dryrun_multichip
+    from gsum_tpu_torch.optimize import fixed_lbfgs_bounded
+    from gsum_tpu_torch.parallel import (Mesh, batched_fit, batched_lml_grid,
+                                         batched_posterior_at,
+                                         batched_predict, make_mesh,
+                                         pointwise_evidence_grid,
+                                         sharded_cgp_lml, sharded_cholesky,
+                                         sharded_fit, sharded_kernel_lml,
+                                         sharded_mvn_lml)
+    from gsum_tpu_torch.parallel.batched import _fit_one
+    from gsum_tpu_torch.parallel.pchol import _cgp_lml_from_gram
+    from gsum_tpu_torch.sample import sample_theta_posterior
+
+    t_path = time.perf_counter()
+    problems, launches, ms, peak = [], {}, {}, {}
+    f64 = dict(dtype=torch.float64, device=device)
+    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def leg(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        (res, t_ms), counts = drive(lambda: timed(fn))
+        launches[name], ms[name] = counts, t_ms
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'timing [{card}] path 10 {name}: {t_ms:.1f} ms, peak memory '
+              f'{peak[name]:.3f} GiB, launches {counts}')
+        return res
+
+    batch_mesh = make_mesh(n_batch=MESH_D, n_model=1,
+                           devices=[device] * MESH_D)
+    model_mesh = Mesh([device] * MESH_D, ('model',))
+
+    # A: the 'batch' axis, on path 7's data
+    (X1, y1), _, (X3, y3) = scale_data()
+    X3t, Y3t = t(X3), t(y3).T.contiguous()
+    thA = t(np.log(np.linspace(0.1, 2.0, MESH_GRID_G))[:, None]
+            .astype(np.float32))
+    grid_kw = dict(df=3, scale=1, nugget=WIDE_NUGGET, precision='f32')
+    # warm-up (the blocked engine's first calls at these shapes), outside
+    # the driven legs
+    batched_lml_grid(fit_kernel(), X3t, Y3t, thA, mesh=batch_mesh, **grid_kw)
+    got = leg('A grid (mesh)', lambda: batched_lml_grid(
+        fit_kernel(), X3t, Y3t, thA, mesh=batch_mesh, **grid_kw))
+    want = leg('A grid (unsharded)', lambda: batched_lml_grid(
+        fit_kernel(), X3t, Y3t, thA, **grid_kw))
+    k1_want = MESH_D * -(-WIDE_N // 128)     # one per diagonal block a shard
+    k1_got = launches['A grid (mesh)']['chol_inv_block']
+    err = max_rel(got, want)
+    print(f'path 10 A: batched_lml_grid over {MESH_GRID_G} θ at N={WIDE_N} '
+          f'f32 (blocked engine) on {MESH_D} batch shards: vs unsharded max '
+          f'rel {err:.3e} (limit 1e-6), bit for bit {torch.equal(got, want)}'
+          f'; K1 launches {k1_got} (derived {k1_want}; unsharded '
+          f"{launches['A grid (unsharded)']['chol_inv_block']})")
+    check(err <= 1e-6 and bool(torch.isfinite(got).all()), f'A grid {err}')
+    check(k1_got == k1_want, f'A grid: {k1_got} K1 launches, derived '
+          f'{k1_want}')
+
+    X1t, y1t = t(X1), t(y1[:MESH_FIT_B])
+    fit_kw = dict(df=3, scale=1, maxiter=FIT_MAXITER)
+    post = leg('A fit (mesh)', lambda: batched_fit(
+        fit_kernel(), X1t, y1t, mesh=batch_mesh, **fit_kw))
+    kf = fit_kernel()
+    lo, hi = (t(b) for b in np.asarray(kf.bounds).T)
+    ref = leg('A fit (unsharded _fit_one)', lambda: _fit_one(
+        kf.clone(), X1t, y1t[:, :, None], torch.ones((FIT_N, 1), **f64),
+        t(kf.theta)[None], lo, hi, np.zeros(1), np.zeros((1, 1)), 3, 1,
+        1e-10, FIT_MAXITER))
+    dth = (post.theta - ref.theta).abs().max().item()
+    dlml = max_rel(post.lml, ref.lml)
+    print(f'path 10 A: batched_fit of {MESH_FIT_B} leg A curves (N={FIT_N} '
+          f'f64, maxiter {FIT_MAXITER}) on the mesh vs the same pairs '
+          f'through _fit_one unsharded: θ max abs {dth:.3e} (limit '
+          f'{SFIT_THETA_TOL:g}), lml max rel {dlml:.3e} (limit '
+          f'{SFIT_LML_TOL:g}), bit for bit '
+          f'{torch.equal(post.theta, ref.theta)}; '
+          f'{MESH_FIT_B / ms["A fit (mesh)"] * 1e3:.1f} fits/s on the mesh, '
+          f'{MESH_FIT_B / ms["A fit (unsharded _fit_one)"] * 1e3:.1f} '
+          f'unsharded')
+    check(dth <= SFIT_THETA_TOL and dlml <= SFIT_LML_TOL, f'A fit {dth} '
+          f'{dlml}')
+
+    _, _, yF, _, _ = trunc_data(device)
+    ratF = t(PW_RATIOS)
+    pw_kw = dict(ref=TRUNC_REF, **PW_PRIORS['df=1, scale=1'])
+    got = leg('A pointwise (mesh)', lambda: pointwise_evidence_grid(
+        yF, np.arange(GP_CURVES), ratF, mesh=batch_mesh, **pw_kw))
+    want = pointwise_evidence_grid(yF, np.arange(GP_CURVES), ratF, **pw_kw)
+    err = max_rel(got, want)
+    print(f'path 10 A: pointwise_evidence_grid at {len(PW_RATIOS)} ratios on '
+          f'the mesh vs unsharded max rel {err:.3e} (limit 1e-12)')
+    check(err <= 1e-12, f'A pointwise {err}')
+
+    thG = post.theta[:POST_B]
+    Xnew = t(np.linspace(0, 1, POST_NEW)[:, None])
+    yG = y1t[0].expand(POST_B, FIT_N)
+
+    def posterior_and_predict(mesh):
+        p = batched_posterior_at(fit_kernel(), X1t, y1t[0], thG, df=3,
+                                 scale=1, mesh=mesh)
+        return p, batched_predict(fit_kernel(), p, X1t, yG, Xnew,
+                                  student=True, mesh=mesh)
+    got = leg('A posterior + predict (mesh)',
+              lambda: posterior_and_predict(batch_mesh))
+    want = posterior_and_predict(None)
+    err = max(max_rel(got[0].lml, want[0].lml),
+              max_rel(got[0].scale_sq, want[0].scale_sq),
+              rel_err(got[1][0], want[1][0]), rel_err(got[1][1], want[1][1]))
+    print(f'path 10 A: batched_posterior_at + batched_predict at {POST_B} θ '
+          f'on the mesh vs unsharded: max rel {err:.3e} (limit 1e-12)')
+    check(err <= 1e-12, f'A posterior + predict {err}')
+
+    # B: the 'model' axis at full width
+    Xb, yb = square_data(BIG_N)
+    Xbt, ybt = t(Xb), t(yb)
+    kb = gt.RBF(0.3, (1e-2, 10))
+    thb = t(kb.theta)
+    got = leg('B sharded_kernel_lml', lambda: sharded_kernel_lml(
+        kb.value_fn, thb, Xbt, ybt, model_mesh, nugget=BIG_NUGGET))
+    want, cond = leg('B dense lml (torch.linalg)', lambda: dense_kernel_lml(
+        kb, thb, Xbt, ybt, BIG_NUGGET))
+    err = max_rel(got, want)
+    print(f'path 10 B: sharded_kernel_lml N={BIG_N} d={GP_D} f64 RBF(0.3) '
+          f'+ nugget {BIG_NUGGET:g}, {GP_CURVES} curves, {MESH_D} shards: '
+          f'vs dense max rel {err:.3e} (limit cond·ε {cond_tol(cond):.3e}, '
+          f'cond ≤ {cond:.3e})')
+    check(err <= cond_tol(cond), f'B kernel lml {err}')
+
+    basis = torch.ones((BIG_N, 1), **f64)
+    prior = (np.zeros(1), np.zeros((1, 1)), 3.0, 1.0)
+
+    def cgp_value(th):
+        return sharded_cgp_lml(kb.value_fn, th, Xbt, ybt, basis, *prior,
+                               model_mesh, nugget=BIG_NUGGET)
+
+    def cgp_grad(value=cgp_value, th=thb):
+        th = th.clone().requires_grad_(True)
+        v = value(th)
+        return v.detach(), torch.autograd.grad(v, th)[0]
+    # warm-up: torch's first forward-mode pass in a process costs ~3 s
+    cgp_grad(lambda th: sharded_cgp_lml(
+        kb.value_fn, th, Xbt[:8], ybt[:8], basis[:8], *prior, model_mesh,
+        nugget=BIG_NUGGET))
+    v_s, g_s = leg('B sharded_cgp_lml + gradient', cgp_grad)
+    gp = gt.ConjugateGaussianProcess(kb, center=0, disp=0, df=3, scale=1,
+                                     nugget=BIG_NUGGET, optimizer=None,
+                                     device=device)
+    v_d, g_d = leg('B dense CGP lml + gradient (the model)', lambda:
+                   gp.log_marginal_likelihood(thb, eval_gradient=True,
+                                              X=Xbt, y=ybt))
+    with torch.no_grad():
+        fd = {h: (cgp_value(thb + h) - cgp_value(thb - h)).item() / (2 * h)
+              for h in (BIG_FD_H, 2 * BIG_FD_H)}
+    # the difference's truncation error is about |D(h) − D(2h)| / 3; its
+    # round-off at most 2δ/(2h), δ = cond·ε·|lml|
+    fd_lim = abs(fd[BIG_FD_H] - fd[2 * BIG_FD_H]) \
+        + 3 * cond_tol(cond) * abs(v_s.item()) / BIG_FD_H
+    e_v = max_rel(v_s, v_d)
+    e_g = max_rel(g_s, g_d)
+    e_fd = abs(g_s.item() - fd[BIG_FD_H])
+    print(f'path 10 B: sharded_cgp_lml {v_s.item():.10e}, gradient '
+          f'{g_s.item():.10e}; vs the dense model: lml rel {e_v:.3e}, '
+          f'gradient rel {e_g:.3e} (limit {cond_tol(cond):.3e}); vs a '
+          f'central difference (h {BIG_FD_H:g}) {fd[BIG_FD_H]:.10e}: |diff| '
+          f'{e_fd:.3e} (limit {fd_lim:.3e})')
+    check(e_v <= cond_tol(cond) and e_g <= cond_tol(cond) and e_fd <= fd_lim,
+          f'B cgp lml {e_v} gradient {e_g} fd {e_fd}')
+
+    # one shard's memory: shard 3 (the widest rows) alone on the card, the
+    # other three on the CPU
+    mixed = Mesh(['cpu'] * (MESH_D - 1) + [device], ('model',))
+    got_m = leg('B sharded_kernel_lml, shard 3 alone on the card',
+                lambda: sharded_kernel_lml(kb.value_fn, thb, Xbt, ybt, mixed,
+                                           nugget=BIG_NUGGET))
+    err_m = max_rel(got_m, want)
+    nl = BIG_N // MESH_D
+    print(f'path 10 B: memory at N={BIG_N} f64: dense route peak '
+          f"{peak['B dense lml (torch.linalg)']:.3f} GiB (N²·8 B = "
+          f'{BIG_N ** 2 * 8 / 2 ** 30:.3f} GiB); the {MESH_D} shards '
+          f"together on the card {peak['B sharded_kernel_lml']:.3f} GiB; "
+          f'shard 3 alone {peak["B sharded_kernel_lml, shard 3 alone on the card"]:.3f}'
+          f' GiB (3·Nl·N·8 B = {3 * nl * BIG_N * 8 / 2 ** 30:.3f} GiB); '
+          f'its lml vs dense max rel {err_m:.3e}')
+    check(err_m <= cond_tol(cond) and peak[
+        'B sharded_kernel_lml, shard 3 alone on the card']
+        < peak['B dense lml (torch.linalg)'], f'B shard memory / {err_m}')
+
+    K8 = kb.value_fn(thb, Xbt[:CHOL_N], None)
+    K8.diagonal().add_(BIG_NUGGET)
+    cond8 = K8.abs().sum(1).max().item() / BIG_NUGGET
+    L_s = leg('B sharded_cholesky', lambda: sharded_cholesky(K8, model_mesh))
+    L_d = torch.linalg.cholesky(K8)
+    e_l = ((L_s - L_d).abs().max() / L_d.abs().max()).item()
+    lml8 = leg('B sharded_mvn_lml', lambda: sharded_mvn_lml(
+        K8, ybt[:CHOL_N], model_mesh))
+    w8 = torch.linalg.solve_triangular(L_d, ybt[:CHOL_N], upper=False)
+    want8 = -0.5 * ((w8 ** 2).sum(0) + 2 * torch.log(L_d.diagonal()).sum()
+                    + CHOL_N * math.log(2 * math.pi))
+    e_8 = max_rel(lml8, want8)
+    del K8, L_s, L_d
+    print(f'path 10 B: sharded_cholesky N={CHOL_N} vs torch.linalg: max abs '
+          f'/ max|L| {e_l:.3e}; sharded_mvn_lml vs dense max rel {e_8:.3e} '
+          f'(limit cond·ε {cond_tol(cond8):.3e})')
+    check(e_l <= cond_tol(cond8) and e_8 <= cond_tol(cond8),
+          f'B sharded_cholesky {e_l} mvn {e_8}')
+
+    # C: sharded_fit at the JAX package's validated configuration
+    Xc = t(np.linspace(0, 1, SFIT_N)[:, None])
+    gen = gt.Matern(0.2, (1e-2, 1e2), nu=1.5)
+    Kg = gen.value_fn(t(gen.theta), Xc, None)
+    Kg.diagonal().add_(SFIT_NUGGET)
+    yc = torch.linalg.cholesky(Kg) @ t(np.random.RandomState(13).randn(
+        SFIT_N, 2))
+    del Kg
+    kc = gt.Matern(0.5, (1e-2, 1e2), nu=1.5)
+    basis_c = torch.ones((SFIT_N, 1), **f64)
+    c0, V0 = np.zeros(1), np.zeros((1, 1))
+    th_s, lml_s = leg('C sharded_fit', lambda: sharded_fit(
+        kc, Xc, yc, basis_c, c0, V0, 3.0, 1.0, model_mesh,
+        nugget=SFIT_NUGGET, maxiter=SFIT_MAXITER, ls_steps=SFIT_LS))
+    Zc = torch.cat([yc, basis_c], 1)
+
+    def dense_obj(th):
+        K = kc.value_fn(th, Xc, None)
+        K = K + SFIT_NUGGET * torch.eye(SFIT_N, **f64)
+        L = torch.linalg.cholesky(K)
+        W = torch.linalg.solve_triangular(L, Zc, upper=False)
+        return -_cgp_lml_from_gram(
+            W.mT @ W, 2.0 * torch.log(L.diagonal()).sum(), SFIT_N, 2, c0, V0,
+            3.0, 1.0)
+    bc = np.asarray(kc.bounds, float).reshape(-1, 2)
+    th_d, f_d = leg('C dense fixed-trip fit', lambda: fixed_lbfgs_bounded(
+        dense_obj, t(kc.theta), bc[:, 0], bc[:, 1], maxiter=SFIT_MAXITER,
+        ls_steps=SFIT_LS))
+    # the dense objective in another elimination order (rows permuted):
+    # the round-off floor of its value at the sharded θ, and of the fit
+    perm = torch.randperm(SFIT_N, generator=torch.Generator().manual_seed(0))
+
+    def dense_perm(th):
+        K = kc.value_fn(th, Xc[perm], None)
+        K = K + SFIT_NUGGET * torch.eye(SFIT_N, **f64)
+        L = torch.linalg.cholesky(K)
+        W = torch.linalg.solve_triangular(L, Zc[perm], upper=False)
+        return -_cgp_lml_from_gram(
+            W.mT @ W, 2.0 * torch.log(L.diagonal()).sum(), SFIT_N, 2, c0, V0,
+            3.0, 1.0)
+    th_dp, _ = fixed_lbfgs_bounded(dense_perm, t(kc.theta), bc[:, 0],
+                                   bc[:, 1], maxiter=SFIT_MAXITER,
+                                   ls_steps=SFIT_LS)
+    with torch.no_grad():
+        self_lml = -dense_obj(th_s)
+        floor_lml = max_rel(-dense_perm(th_s), self_lml)
+    floor_th = (th_dp - th_d).abs().max().item()
+    print(f'path 10 C: the dense objective with its rows permuted: lml at '
+          f'the sharded θ rel {floor_lml:.3e}, its fit |Δθ| {floor_th:.3e}')
+    dth = (th_s - th_d).abs().max().item()
+    e_self = max_rel(lml_s, self_lml)
+    # JAX's contract, or twice the dense route's own round-off where that
+    # is larger: at this conditioning a reordering of the dense objective
+    # moves its fixed-trip fit by more than 1e-5
+    lim_th = max(SFIT_THETA_TOL, 2 * floor_th)
+    lim_lml = max(SFIT_LML_TOL, 2 * floor_lml)
+    print(f'path 10 C: sharded_fit N={SFIT_N} Matern 1.5 from ℓ 0.5 (2 '
+          f'curves drawn at ℓ 0.2), maxiter {SFIT_MAXITER}, ls_steps '
+          f'{SFIT_LS}, {MESH_D} shards: ℓ {th_s.exp().tolist()} vs dense '
+          f'{th_d.exp().tolist()}: |Δθ| {dth:.3e} (JAX\'s contract '
+          f'{SFIT_THETA_TOL:g}, limit {lim_th:.3e}); lml '
+          f'{lml_s.item():.10e} vs the dense objective at its θ rel '
+          f'{e_self:.3e} (JAX\'s contract {SFIT_LML_TOL:g}, limit '
+          f'{lim_lml:.3e}); the two optima\'s lml rel '
+          f'{max_rel(lml_s, -f_d):.3e}')
+    check(dth <= lim_th and e_self <= lim_lml,
+          f'C sharded_fit {dth} {e_self}')
+
+    # D: HMC on the mesh, path 9 B's CGP with its White as the nugget (the
+    # sharded build's two-argument kernel has no WhiteKernel)
+    Xg, yg, _ = gp_data()
+    gpd = gp_model(device, optimizer=None, kernel=gt.RBF(0.3, (1e-2, 10)),
+                   nugget=1e-4).fit(Xg[:HMC_MESH_N], yg[:HMC_MESH_N])
+    s_m, info_m = leg('D HMC on the mesh', lambda: sample_theta_posterior(
+        gpd, n_chains=HMC_CHAINS, random_state=1, mesh=model_mesh,
+        **HMC_MESH))
+    s_p, info_p = leg('D HMC unsharded', lambda: sample_theta_posterior(
+        gpd, n_chains=HMC_CHAINS, random_state=1, **HMC_MESH))
+    flat_p = s_p.reshape(-1, s_p.shape[-1])
+    picks = flat_p[torch.linspace(0, len(flat_p) - 1, HMC_MESH_CHECK).long()]
+    # the draws sit near the mode, where the gradient is a cancellation:
+    # its error is measured against the gradient's scale at the start θ
+    _, g_start = gpd.log_marginal_likelihood(t(gpd.kernel_.theta),
+                                             eval_gradient=True)
+    g_scale = g_start.abs().max().item()
+    e_ld = e_gd = 0.0
+    for th in picks:
+        th = th.clone().requires_grad_(True)
+        v = sharded_cgp_lml(gpd.kernel_.value_fn, th, gpd.X_train_,
+                            gpd.y_train_, gpd.basis_train_, np.zeros(1),
+                            np.zeros((1, 1)), 3.0, 1.0, model_mesh,
+                            nugget=gpd.nugget)
+        g = torch.autograd.grad(v, th)[0]
+        v_d, g_d = gpd.log_marginal_likelihood(th.detach(),
+                                               eval_gradient=True)
+        e_ld = max(e_ld, max_rel(v, v_d))
+        e_gd = max(e_gd, rel_err(g, g_d, g_scale))
+    m_m, m_p = (s.reshape(-1, s.shape[-1]).mean(0).cpu().numpy()
+                for s in (s_m, s_p))
+    sd = flat_p.std(0).cpu().numpy()
+    mcse = sd * np.sqrt(1 / info_m['ess'] + 1 / info_p['ess'])
+    n_grad = (HMC_MESH['n_warmup'] + HMC_MESH['n_samples']) \
+        * HMC_MESH['n_leapfrog'] + 1
+    print(f'path 10 D: HMC of a CGP at N={HMC_MESH_N} on {MESH_D} model '
+          f'shards, {HMC_CHAINS} chains × {HMC_MESH}: log ℓ mean {m_m} vs '
+          f'unsharded {m_p} (|diff| {np.abs(m_m - m_p)}, limit 4 MCSE '
+          f'{4 * mcse}); ESS {info_m["ess"]} / {info_p["ess"]}; logdensity '
+          f'at {HMC_MESH_CHECK} unsharded draws rel {e_ld:.3e}, gradient '
+          f'{e_gd:.3e} of its scale at the start {g_scale:.3e} (limit '
+          f'{HMC_MESH_TOL:g}); '
+          f'{ms["D HMC on the mesh"] / n_grad:.2f} ms a gradient evaluation '
+          f'on the mesh, {ms["D HMC unsharded"] / n_grad:.2f} unsharded')
+    check(np.all(np.abs(m_m - m_p) <= 4 * mcse) and e_ld <= HMC_MESH_TOL
+          and e_gd <= HMC_MESH_TOL, f'D HMC {e_ld} {e_gd}')
+
+    # E: the twin of __graft_entry__.dryrun_multichip on 4 shards of the card
+    leg('E dryrun_multichip(4)', lambda: dryrun_multichip(MESH_D))
+
+    for name, counts in launches.items():
+        want = k1_want if name == 'A grid (mesh)' else \
+            -(-WIDE_N // 128) if name == 'A grid (unsharded)' else 0
+        check(counts['chol_inv_block'] == want and sum(counts.values())
+              == counts['chol_inv_block'], f'{name}: launches {counts}')
+    print(f'timing [{card}] path 10: wall {time.perf_counter() - t_path:.1f} '
+          f's (card and CPU)')
+    if problems:
+        raise AssertionError('path 10: ' + '; '.join(problems))
+    return launches
+
+
 def kernel_device_ms(fn, calls=10):
     """Device time in ms of one call of ``fn``: CUDA events around
     ``calls`` calls queued behind a spin kernel, so that the card runs them
@@ -2798,11 +3202,17 @@ def main():
     launches9 = sampling_path(trunc, model_a, card)
     t9 = time.perf_counter() - t89 - t8
     del trunc, model_a
+    # path 10: large N across devices, on meshes that repeat the card
+    t10 = time.perf_counter()
+    launches10 = mesh_path(card)
+    t10 = time.perf_counter() - t10
     for path, counts in (('8', launches8), ('9', launches9)):
         print(f'main path (paths 8-9): path {path} launches by leg: '
               + '; '.join(f'{leg} {c}' for leg, c in counts.items()))
+    print('main path (path 10) launches by leg: ' + '; '.join(
+        f'{leg} {c}' for leg, c in launches10.items()))
     print(f'timing [{card}] path 8 {t8:.1f} s, path 9 {t9:.1f} s, together '
-          f'{t8 + t9:.1f} s')
+          f'{t8 + t9:.1f} s; path 10 {t10:.1f} s')
     print(f'timing [{card}] wall time of the whole script '
           f'{time.perf_counter() - t_script:.1f} s')
 

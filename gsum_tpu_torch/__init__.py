@@ -31,7 +31,10 @@ derivative observations and sampling: ``derivs`` (derivative
 cross-covariances by ``torch.func``, behind the models' ``dorders`` and
 ``dderivs``), ``diagnostics.GraphicalDiagnostic`` with its renderer
 ``viz``, the HMC of ``sample``, ``checkpoint`` (the JAX package's npz
-format), ``profiling`` and ``pdfmeta``.
+format), ``profiling`` and ``pdfmeta``; large N across devices:
+``parallel.mesh`` (single-controller meshes, a device may repeat),
+``parallel.pchol`` (the row-sharded Cholesky, the on-shard lml with its
+forward-mode gradient, ``sharded_fit``) and every ``mesh=`` argument.
 ``convert.to_torch`` moves the JAX package's inputs (numpy
 arrays and scalars) onto a device, ``convert.to_torch_kernel`` its kernels
 and ``convert.to_torch_model`` its models.

@@ -8,7 +8,8 @@ of the same class and parameters (its θ, bounds and fixed flags come along),
 :func:`to_torch_model` a ``gsum_tpu`` model as the port's, and
 :func:`to_torch_posterior` a ``gsum_tpu.parallel.BatchedPosterior``.  None
 of them imports the JAX package: kernels, models and states are read by
-duck typing.
+duck typing.  A mesh carries no state, so none is converted: build the
+port's own with ``parallel.make_mesh`` or ``parallel.Mesh``.
 """
 from __future__ import annotations
 

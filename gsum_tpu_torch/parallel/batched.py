@@ -1,5 +1,5 @@
-R"""Batched MAP fits, hyperparameter-grid sweeps and the batched posterior on
-one card (counterpart of ``gsum_tpu/parallel/batched.py``).
+R"""Batched MAP fits, hyperparameter-grid sweeps and the batched posterior
+(counterpart of ``gsum_tpu/parallel/batched.py``).
 
 The reference's large-scale patterns are Python loops: a (Q, ℓ) grid of
 8000 log-marginal-likelihood evaluations (reference: the publication
@@ -12,11 +12,13 @@ batched L-BFGS (``optimize.fixed_lbfgs_bounded_batched``) over that wide
 objective.
 
 Inputs given as numpy go to the card (``_config.default_device``), tensors
-stay where they are.  ``mesh=`` (sharding over several devices) is not
-ported yet: it raises ``NotImplementedError`` (ROADMAP.md A5).  The JAX
-package's cache of compiled grid functions has no counterpart (PyTorch
-compiles nothing), nor has the chunk cap it places on the blocked engine
-for the TPU's vector memory.
+stay where they are.  ``mesh=`` (a ``parallel.mesh.Mesh``) splits the batch
+over the mesh's ``'batch'`` axis: each shard's slice runs on its own device,
+through the same engine as unsharded (``batched_fit``: JAX's per-fit route,
+:func:`_fit_one`), and the results are concatenated on the first device.
+The JAX package's cache of compiled grid functions has no counterpart
+(PyTorch compiles nothing), nor has the chunk cap it places on the blocked
+engine for the TPU's vector memory.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..linalg import cholesky
 from ..models import ConjugateGaussianProcess
 from ..ops.gridlml import cgp_lml_grid, cgp_lml_grid2, csp_lml_grid2
 from ..optimize import fixed_lbfgs_bounded_batched
+from .mesh import _axis_devices, shard_batch
 
 __all__ = ['batched_fit', 'batched_predict', 'batched_posterior_at',
            'batched_lml_grid', 'truncation_lml_grid',
@@ -50,11 +53,45 @@ _ENGINES = {'grid': 'unrolled', 'scan': 'scan', 'blocked': 'blocked',
             'scalar': None}
 
 
-def _no_mesh(mesh, where):
-    if mesh is not None:
-        raise NotImplementedError(
-            f'{where}(mesh=...): sharding over several devices is not ported '
-            'yet (ROADMAP.md queue A, item 5)')
+def _check_mesh_batch(B, mesh, where):
+    """The batch must divide over the mesh's 'batch' axis (JAX's shardings
+    refuse ragged shards): fail with the fix."""
+    n = mesh.shape['batch']
+    if B % n:
+        raise ValueError(
+            f'{where}: batch size {B} is not divisible by the mesh '
+            f"'batch' axis size {n}; pad the batch (e.g. repeat the last "
+            f'row) or drop mesh= to run unsharded')
+
+
+def _first_device(mesh):
+    """Where numpy inputs go: the mesh's first 'batch' device, or (no
+    mesh) ``_config.default_device``."""
+    return None if mesh is None else _axis_devices(mesh, 'batch')[0]
+
+
+def _cat(parts, device):
+    """Per-shard results (tensors, tuples of them or BatchedPosteriors)
+    concatenated along the batch on ``device``."""
+    first = parts[0]
+    if isinstance(first, BatchedPosterior):
+        return _map_fields(lambda *xs: _cat(xs, device), *parts)
+    if isinstance(first, tuple):
+        return tuple(_cat(xs, device) for xs in zip(*parts))
+    return torch.cat([p.to(device) for p in parts], 0)
+
+
+def _over_batch(mesh, where, fn, *batched):
+    """``fn(device, *slices)`` for each shard of the leading axis of the
+    ``batched`` tensors over the mesh's 'batch' axis, each on its shard's
+    device; the results concatenated on the first shard's device."""
+    _check_mesh_batch(batched[0].shape[0], mesh, where)
+    devices = _axis_devices(mesh, 'batch')
+    shards = shard_batch(mesh, *batched)
+    if len(batched) == 1:
+        shards = (shards,)
+    return _cat([fn(dev, *slices) for dev, *slices in zip(devices, *shards)],
+                devices[0])
 
 
 def _engine(engine):
@@ -158,7 +195,8 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
     kernel : Kernel — fixes the structure; ``thetas`` supplies the values
     X : (N, d) inputs; y : (N,) or (N, m) data
     thetas : (G, n_params) grid of log-parameter vectors
-    mesh : not ported (raises ``NotImplementedError``)
+    mesh : ``parallel.mesh.Mesh``, optional — split the grid over the
+        'batch' axis (G must divide)
     basis : None | callable | (N, q) array — mean basis (None = constant
         ones); ``center`` / ``disp`` must be shaped for q columns
     precision : 'f64' | 'f32' | 'mixed' — 'mixed' sweeps the grid at f32
@@ -173,23 +211,22 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
     -------
     (G,) tensor of log-marginal likelihoods
     """
-    _no_mesh(mesh, 'batched_lml_grid')
     if precision not in ('f64', 'f32', 'mixed'):
         raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
-    X = as_input(X)
+    X = as_input(X, device=_first_device(mesh))
     if precision == 'mixed':
         vals32 = batched_lml_grid(kernel, X, y, thetas, center, disp, df,
-                                  scale, nugget, None, basis, engine,
+                                  scale, nugget, mesh, basis, engine,
                                   precision='f32',
                                   mxu_precision=mxu_precision)
         thetas = as_input(thetas, device=X.device)
         k = min(int(top_k), thetas.shape[0])
         idx = torch.argsort(vals32)[-k:]
-        vals64 = batched_lml_grid(kernel, X, y, thetas[idx], center, disp,
-                                  df, scale, nugget, None, basis, engine,
-                                  precision='f64')
+        vals64 = batched_lml_grid(kernel, X, y, thetas[idx.to(X.device)],
+                                  center, disp, df, scale, nugget, mesh,
+                                  basis, engine, precision='f64')
         out = vals32.to(torch.float64)
-        out[idx] = vals64.to(torch.float64)
+        out[idx] = vals64.to(out.device, torch.float64)
         return out
     y = as_input(y, device=X.device)
     thetas = as_input(thetas, device=X.device)
@@ -200,19 +237,26 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
     y2 = y[:, None] if y.ndim == 1 else y
     basis = _resolve_basis(basis, X)
     N = X.shape[0]
+    frozen = kernel.clone()
 
-    if engine == 'auto':
-        # above the scan engine's range, f32 on the card goes to the
-        # blocked engine; f64 stays on the vmapped scalar lml
-        blocked_ok = (torch.promote_types(X.dtype, y.dtype) == torch.float32
-                      and X.device.type == 'cuda')
-        grid_engine = ('unrolled' if N <= 256
-                       else 'scan' if N <= 1024
-                       else 'blocked' if blocked_ok else None)
-    else:
-        grid_engine = _engine(engine)
-    return _grid_lml(kernel.clone(), thetas, X, y2, basis, center, disp, df,
-                     scale, nugget, grid_engine, mxu_precision)
+    def sweep(device, ths):
+        if engine == 'auto':
+            # above the scan engine's range, f32 on the card goes to the
+            # blocked engine; f64 stays on the vmapped scalar lml
+            blocked_ok = (torch.promote_types(X.dtype, y.dtype)
+                          == torch.float32 and device.type == 'cuda')
+            grid_engine = ('unrolled' if N <= 256
+                           else 'scan' if N <= 1024
+                           else 'blocked' if blocked_ok else None)
+        else:
+            grid_engine = _engine(engine)
+        return _grid_lml(frozen, ths, X.to(device), y2.to(device),
+                         basis.to(device), center, disp, df, scale, nugget,
+                         grid_engine, mxu_precision)
+
+    if mesh is not None:
+        return _over_batch(mesh, 'batched_lml_grid', sweep, thetas)
+    return sweep(X.device, thetas)
 
 
 def _restart_starts(theta0, lower, upper, n_restarts, seed):
@@ -244,7 +288,9 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     kernel : Kernel — structure, initial θ and bounds
     X : (N, d) shared inputs
     y_batch : (B, N) or (B, N, m) — independent data sets
-    mesh : not ported (raises ``NotImplementedError``)
+    mesh : optional Mesh — split B over the 'batch' axis (B must divide);
+        each shard runs JAX's per-fit route (:func:`_fit_one`), which
+        ``engine``, ``chunk`` and ``ls_steps`` do not reach
     n_restarts : int — additional restart points per fit, drawn uniformly
         in the log-bounds from a ``torch.Generator`` seeded with ``seed``;
         the restarts run as more fits and the best optimum per fit is kept
@@ -270,10 +316,9 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     -------
     BatchedPosterior with leading batch dimension B
     """
-    _no_mesh(mesh, 'batched_fit')
     if precision not in ('f64', 'f32', 'mixed'):
         raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
-    X = as_input(X)
+    X = as_input(X, device=_first_device(mesh))
     y_batch = as_input(y_batch, device=X.device)
     bounds = np.asarray(kernel.bounds, dtype=float)
     f64 = dict(dtype=torch.float64, device=X.device)
@@ -281,6 +326,9 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     upper = torch.as_tensor(bounds[:, 1], **f64)
     c0, V0 = np.atleast_1d(center), np.atleast_2d(disp)
     if precision == 'mixed':
+        if mesh is not None:
+            raise ValueError("precision='mixed' is single-device only "
+                             "(shard the f32 sweep and polish separately)")
         post32 = batched_fit(kernel, X.to(torch.float32),
                              y_batch.to(torch.float32), center, disp, df,
                              scale, nugget, maxiter, theta0, None,
@@ -312,10 +360,32 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
         starts = _restart_starts(theta0, lower, upper, n_restarts, seed)
     else:
         starts = theta0[None]
+    if mesh is not None:
+        frozen = kernel.clone()
+        return _over_batch(
+            mesh, 'batched_fit', lambda dev, ys: _fit_one(
+                frozen, X.to(dev), ys, basis.to(dev), starts.to(dev),
+                lower.to(dev), upper.to(dev), c0, V0, df, scale, nugget,
+                maxiter), y_batch)
     return _batched_fit_wide(kernel.clone(), X, y_batch, basis, starts,
                              lower, upper, c0, V0, df, scale, nugget, maxiter,
                              chunk, engine, ls_steps,
                              mxu_precision=mxu_precision)
+
+
+def _fit_one(frozen, X, Ys, basis, starts, lower, upper, c0, V0, df0,
+             scale0, nugget, maxiter):
+    """JAX's sharded fit route (``_fit_one`` vmapped over every (curve,
+    start) pair): the per-fit fixed-trip L-BFGS on the scalar lml, 10
+    line-search steps, the best start kept by lml, then the Cholesky and
+    the conjugate updates at the optimum.  The lockstep batched L-BFGS
+    iterates each pair as a single run would (every operation is per
+    row), so it runs the pairs together: the scalar engine of
+    :func:`_batched_fit_wide`, unchunked.  ``engine``, ``chunk`` and
+    ``ls_steps`` do not reach this route, as in JAX."""
+    return _batched_fit_wide(frozen, X, Ys, basis, starts, lower, upper,
+                             c0, V0, df0, scale0, nugget, maxiter, None,
+                             engine='scalar', ls_steps=10)
 
 
 def _auto_fit_engine(dtype, N, backend):
@@ -549,15 +619,14 @@ def pointwise_evidence_grid(y, orders, ratios, ref=1, df=1, scale=1,
         scale-invariant prior, whose infinite normalization is dropped as
         the reference does
     excluded : orders excluded from the coefficient model
-    mesh : not ported (raises ``NotImplementedError``)
+    mesh : optional Mesh — split the R axis over 'batch' (R must divide)
 
     Returns
     -------
     (R,) tensor: log p(y | ratio_r), as
     ``TruncationPointwise(df, scale, excluded).fit(y, ...).log_likelihood``
     """
-    _no_mesh(mesh, 'pointwise_evidence_grid')
-    y = as_input(y)
+    y = as_input(y, device=_first_device(mesh))
     if y.ndim == 1:
         y = y[:, None]
     N = y.shape[0]
@@ -570,23 +639,31 @@ def pointwise_evidence_grid(y, orders, ratios, ref=1, df=1, scale=1,
     refv = as_input(ref, device=y.device).to(y.dtype).broadcast_to((N,))
     df0, scale0 = float(df), float(scale)
 
-    coeffs = _coefficients(y, orders, mask, ratios, refv)          # (R, N, m)
-    # conjugate scaled-inverse-χ² update (reference models.py:1623-1631)
-    df_post = df0 + m
-    scale_sq = (df0 * scale0 ** 2
-                + torch.sum(coeffs * coeffs, -1)) / df_post         # (R, N)
-    # df_post is a concrete number: its log-gamma is taken on the host
-    ll = math.lgamma(df_post / 2.) - 0.5 * m * _LOG_2PI
-    if df0 > 0:  # the scale-invariant prior df0 = 0 drops its normalization
-        ll += 0.5 * df0 * math.log(df0 * scale0 ** 2 / 2.) \
-            - math.lgamma(df0 / 2.)
-    ll = ll - 0.5 * torch.sum(df_post * torch.log(df_post * scale_sq / 2.),
-                              -1)                                   # (R,)
+    def sweep(device, ratios):
+        yd, refd = y.to(device), refv.to(device)
+        coeffs = _coefficients(yd, orders, mask, ratios, refd)   # (R, N, m)
+        # conjugate scaled-inverse-χ² update (reference models.py:1623-1631)
+        df_post = df0 + m
+        scale_sq = (df0 * scale0 ** 2
+                    + torch.sum(coeffs * coeffs, -1)) / df_post     # (R, N)
+        # df_post is a concrete number: its log-gamma is taken on the host
+        ll = math.lgamma(df_post / 2.) - 0.5 * m * _LOG_2PI
+        if df0 > 0:  # the scale-invariant prior df0 = 0 drops its
+            # normalization
+            ll += 0.5 * df0 * math.log(df0 * scale0 ** 2 / 2.) \
+                - math.lgamma(df0 / 2.)
+        ll = ll - 0.5 * torch.sum(
+            df_post * torch.log(df_post * scale_sq / 2.), -1)       # (R,)
 
-    # change-of-variables determinant y → c (reference models.py:1780-1784)
-    det = (torch.sum(torch.log(torch.abs(refv)))
-           + float(np.sum(orders_in)) * torch.sum(torch.log(ratios), -1))
-    return ll - det
+        # change-of-variables determinant y → c (reference
+        # models.py:1780-1784)
+        det = (torch.sum(torch.log(torch.abs(refd)))
+               + float(np.sum(orders_in)) * torch.sum(torch.log(ratios), -1))
+        return ll - det
+
+    if mesh is not None:
+        return _over_batch(mesh, 'pointwise_evidence_grid', sweep, ratios)
+    return sweep(y.device, ratios)
 
 
 def batched_predict(kernel, post, X, y_batch, Xnew, mesh=None, basis=None,
@@ -609,13 +686,14 @@ def batched_predict(kernel, post, X, y_batch, Xnew, mesh=None, basis=None,
       std (variances add, as in the class's return_cov path).
 
     ``basis``: None (constant ones) or a callable evaluated at X and Xnew;
-    it must match the basis of the fits.  ``mesh``: not ported (raises).
+    it must match the basis of the fits.  ``mesh``: optional Mesh — split
+    the fits over the 'batch' axis (B must divide); X and Xnew go to every
+    shard.
 
     Returns
     -------
     (means, stds): ((B, N_new, m), (B, N_new)) tensors
     """
-    _no_mesh(mesh, 'batched_predict')
     if basis is not None and not callable(basis):
         raise TypeError('batched_predict needs basis=None or a callable '
                         '(it must be evaluated at both X and Xnew)')
@@ -628,32 +706,39 @@ def batched_predict(kernel, post, X, y_batch, Xnew, mesh=None, basis=None,
     y_batch = as_input(y_batch, device=dev)
     if y_batch.ndim == 2:
         y_batch = y_batch[:, :, None]
-    basis_old = _resolve_basis(basis, X)
-    basis_new = _resolve_basis(basis, Xnew)
-    L, cov_factor = post.chol, post.cov_factor
-    B = L.shape[0]
 
-    m_old = torch.einsum('nq,bq->bn', basis_old, post.center)
-    m_new = torch.einsum('nq,bq->bn', basis_new, post.center)
-    R_on = vmap(lambda th: frozen.value_fn(th, X, Xnew))(post.theta)
-    alpha = torch.cholesky_solve(y_batch - m_old[..., None], L)
-    m_pred = m_new[..., None] + R_on.mT @ alpha
-    R_nn = vmap(lambda th: frozen.value_fn(th, Xnew, None))(post.theta)
-    var = torch.diagonal(R_nn, dim1=-2, dim2=-1) \
-        - torch.sum(R_on * torch.cholesky_solve(R_on, L), -2)
-    std = torch.sqrt(torch.clamp(cov_factor[:, None] * var, min=0.0))
-    if student:
-        # the mean uncertainty of the marginalized-mean process (reference
-        # models.py:1171-1181), entered per student_mode
-        b_cond = basis_new - R_on.mT @ torch.cholesky_solve(
-            basis_old.expand((B,) + basis_old.shape), L)
-        mu_var = cov_factor[:, None] * torch.einsum(
-            'bnq,bqr,bnr->bn', b_cond, post.disp, b_cond)
-        if student_mode == 'variance':
-            std = torch.sqrt(std ** 2 + torch.clamp(mu_var, min=0.0))
-        else:
-            std = std + torch.sqrt(torch.clamp(mu_var, min=0.0))
-    return m_pred, std
+    def predict(device, theta, L, center, cov_factor, disp, y_batch):
+        Xd, Xn = X.to(device), Xnew.to(device)
+        basis_old = _resolve_basis(basis, Xd)
+        basis_new = _resolve_basis(basis, Xn)
+        B = L.shape[0]
+        m_old = torch.einsum('nq,bq->bn', basis_old, center)
+        m_new = torch.einsum('nq,bq->bn', basis_new, center)
+        R_on = vmap(lambda th: frozen.value_fn(th, Xd, Xn))(theta)
+        alpha = torch.cholesky_solve(y_batch - m_old[..., None], L)
+        m_pred = m_new[..., None] + R_on.mT @ alpha
+        R_nn = vmap(lambda th: frozen.value_fn(th, Xn, None))(theta)
+        var = torch.diagonal(R_nn, dim1=-2, dim2=-1) \
+            - torch.sum(R_on * torch.cholesky_solve(R_on, L), -2)
+        std = torch.sqrt(torch.clamp(cov_factor[:, None] * var, min=0.0))
+        if student:
+            # the mean uncertainty of the marginalized-mean process
+            # (reference models.py:1171-1181), entered per student_mode
+            b_cond = basis_new - R_on.mT @ torch.cholesky_solve(
+                basis_old.expand((B,) + basis_old.shape), L)
+            mu_var = cov_factor[:, None] * torch.einsum(
+                'bnq,bqr,bnr->bn', b_cond, disp, b_cond)
+            if student_mode == 'variance':
+                std = torch.sqrt(std ** 2 + torch.clamp(mu_var, min=0.0))
+            else:
+                std = std + torch.sqrt(torch.clamp(mu_var, min=0.0))
+        return m_pred, std
+
+    args = (post.theta, post.chol, post.center, post.cov_factor, post.disp,
+            y_batch)
+    if mesh is not None:
+        return _over_batch(mesh, 'batched_predict', predict, *args)
+    return predict(dev, *args)
 
 
 def batched_posterior_at(kernel, X, y, thetas, center=0, disp=0, df=1,
@@ -676,16 +761,16 @@ def batched_posterior_at(kernel, X, y, thetas, center=0, disp=0, df=1,
     thetas : (B, n_dims) log-hyperparameter rows
     center, disp, df, scale, nugget, basis : as in :func:`batched_fit`
     chunk : at most this many draws per batched evaluation (bounds memory)
-    mesh : not ported (raises ``NotImplementedError``)
+    mesh : optional Mesh — split B over the 'batch' axis (B must divide);
+        each shard is one evaluation, ``chunk`` is bypassed (as in JAX)
 
     Returns
     -------
     BatchedPosterior with leading dimension B
     """
-    _no_mesh(mesh, 'batched_posterior_at')
     frozen = kernel.clone()
     lml = make_lml_fn(kernel, center, disp, df, scale, nugget)
-    X = torch.atleast_2d(as_input(X))
+    X = torch.atleast_2d(as_input(X, device=_first_device(mesh)))
     y2 = as_input(y, device=X.device)
     if y2.ndim == 1:
         y2 = y2[:, None]
@@ -693,16 +778,19 @@ def batched_posterior_at(kernel, X, y, thetas, center=0, disp=0, df=1,
     c0, V0 = np.atleast_1d(center), np.atleast_2d(disp)
     thetas = torch.atleast_2d(as_input(thetas, device=X.device).to(X.dtype))
 
-    def fn(ths):
+    def fn(device, ths):
+        Xd, yd, bd = X.to(device), y2.to(device), basis_c.to(device)
         with torch.no_grad():
-            Ys = y2.expand((ths.shape[0],) + y2.shape)
-            parts = _posterior(frozen, ths, X, Ys, basis_c, c0, V0, df,
-                               scale, nugget)
-            vals = vmap(lambda th: lml(th, X, y2, basis_c))(ths)
+            Ys = yd.expand((ths.shape[0],) + yd.shape)
+            parts = _posterior(frozen, ths, Xd, Ys, bd, c0, V0, df, scale,
+                               nugget)
+            vals = vmap(lambda th: lml(th, Xd, yd, bd))(ths)
         return BatchedPosterior(lml=vals, **parts)
 
+    if mesh is not None:        # one evaluation per shard: chunk bypassed
+        return _over_batch(mesh, 'batched_posterior_at', fn, thetas)
     B = thetas.shape[0]
     if chunk is None or B <= chunk:
-        return fn(thetas)
-    parts = [fn(thetas[i:i + chunk]) for i in range(0, B, chunk)]
+        return fn(X.device, thetas)
+    parts = [fn(X.device, thetas[i:i + chunk]) for i in range(0, B, chunk)]
     return _map_fields(lambda *xs: torch.cat(xs, 0), *parts)

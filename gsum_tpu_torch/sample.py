@@ -23,7 +23,9 @@ log-marginal likelihood as the target:
 Random draws come from one ``torch.Generator`` on the chains' device,
 seeded with ``random_state``; they differ from the JAX package's at equal
 seeds.  ``steps_per_call`` (which segments the JAX program for the TPU) is
-accepted and changes nothing; ``mesh=`` raises ``NotImplementedError``.
+accepted and changes nothing.  With ``mesh=``, ``sample_theta_posterior``
+evaluates the lml model-parallel (``parallel.pchol.sharded_cgp_lml``, whose
+forward-mode gradient ``torch.func`` batches over the chains as well).
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ from torch.func import grad_and_value, vmap
 from ._config import as_input
 from .helpers import _generator
 from .optimize import _softplus, _to_bounded, _to_unbounded
-from .parallel.batched import _no_mesh
 
 __all__ = ['hmc', 'sample_theta_posterior', 'sample_truncation_posterior',
            'posterior_predictive', 'truncation_posterior_predictive',
@@ -293,11 +294,17 @@ def sample_theta_posterior(gp, X=None, y=None, n_chains=4, n_samples=1000,
     ``step_size``, ``rhat`` (d,) and ``ess`` (d,).
 
     ``steps_per_call`` is accepted and changes nothing (the steps are
-    issued from a host loop already).  ``mesh`` is not ported (raises
-    ``NotImplementedError``).
+    issued from a host loop already).
+
+    ``mesh`` / ``mesh_axis``: the model-parallel large-N path.  With a
+    ``parallel.mesh.Mesh``, every lml and its gradient evaluate through
+    ``parallel.pchol.sharded_cgp_lml``: the correlation matrix is built and
+    factored row-sharded over ``mesh[mesh_axis]`` and never made on one
+    device (ConjugateGaussianProcess only, without derivative training
+    data; the kernel's two-argument ``value_fn`` builds it, where a
+    WhiteKernel is 0, as in JAX).
     """
-    _no_mesh(mesh, 'sample_theta_posterior')
-    del steps_per_call, mesh_axis
+    del steps_per_call
     kernel = gp._kernel_for_lml()
     if kernel.n_dims == 0:
         raise ValueError('kernel has no free hyperparameters to sample')
@@ -313,8 +320,25 @@ def sample_theta_posterior(gp, X=None, y=None, n_chains=4, n_samples=1000,
         basis = gp._basis(X_arr)
     frozen = kernel.clone()
 
-    def loglike(theta):
-        return gp._lml(frozen, theta, X_arr, y2, basis)
+    if mesh is not None:
+        from .models import ConjugateGaussianProcess
+        from .parallel.pchol import sharded_cgp_lml
+
+        if not isinstance(gp, ConjugateGaussianProcess):
+            raise TypeError('mesh-sharded sampling targets the '
+                            'ConjugateGaussianProcess lml')
+        if X is None and gp.dorders_ is not None:
+            raise ValueError('derivative training data is not supported '
+                             'in the sharded lml path')
+        c0, V0 = np.atleast_1d(gp.center0), np.atleast_2d(gp.disp0)
+
+        def loglike(theta):
+            return sharded_cgp_lml(frozen.value_fn, theta, X_arr, y2, basis,
+                                   c0, V0, gp.df0, gp.scale0, mesh,
+                                   axis=mesh_axis, nugget=gp.nugget)
+    else:
+        def loglike(theta):
+            return gp._lml(frozen, theta, X_arr, y2, basis)
 
     return _run_bounded_hmc(
         loglike, np.asarray(kernel.bounds, dtype=float),

@@ -7,7 +7,8 @@ on the card against the CPU; the incomplete-beta kernels against their plain
 versions, and the t quantile, ``TruncationPointwise`` and ``Diagnostic`` on
 the card against the CPU; the batched engines and sweeps; derivative
 covariances, ``GraphicalDiagnostic``'s data, one HMC proposal and a
-checkpoint round trip on the card.  Marked ``gpu``: every test skips where there is
+checkpoint round trip on the card; a 4-shard mesh on one card against the
+dense route, and a mesh on a card that is not there.  Marked ``gpu``: every test skips where there is
 no CUDA card.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -856,3 +857,60 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     for a, b in zip(m.predict(xn, 1, return_std=True),
                     m2.predict(xn, 1, return_std=True)):
         assert a.device.type == 'cuda' and torch.equal(a, b)
+
+
+def test_four_shard_mesh_on_one_card_matches_the_dense_lml(cuda):
+    """A 4-shard mesh on ``cuda:0``: the on-shard lml, its gradient and the
+    sharded factor against the dense ``torch.linalg`` route on the card
+    (N=512, nugget 1e-4, condition number 2e6: 1e-10 relative), and a
+    'batch' mesh of the grid sweep against the unsharded call (1e-9:
+    cuSOLVER's batched factorization is not bit for bit across batch
+    sizes, cond·ε = 4.4e-10)."""
+    from gsum_tpu_torch.parallel import (Mesh, batched_lml_grid,
+                                         sharded_cgp_lml, sharded_cholesky)
+
+    n, nug = 512, 1e-4
+    mesh = Mesh([cuda] * 4, ('model',))
+    x = torch.tensor(np.linspace(0, 1, n)[:, None], device=cuda)
+    y = torch.tensor(np.sin(3 * np.linspace(0, 1, n))[:, None]
+                     + 0.1 * np.random.RandomState(0).randn(n, 2),
+                     device=cuda)
+    basis = torch.ones((n, 1), dtype=torch.float64, device=cuda)
+    k = gt.Matern(0.2, (1e-2, 10), nu=1.5)
+    prior = (np.zeros(1), np.zeros((1, 1)), 3.0, 1.0)
+    th = torch.tensor(k.theta, device=cuda, requires_grad=True)
+    got = sharded_cgp_lml(k.value_fn, th, x, y, basis, *prior, mesh,
+                          nugget=nug)
+    (g,) = torch.autograd.grad(got, th)
+    gp = gt.ConjugateGaussianProcess(k, center=0, disp=0, df=3, scale=1,
+                                     nugget=nug, optimizer=None,
+                                     device=cuda).fit(x, y)
+    want, g_want = gp.log_marginal_likelihood(th.detach(),
+                                              eval_gradient=True)
+    assert got.device == cuda
+    np.testing.assert_allclose(got.item(), want.item(), rtol=1e-10)
+    np.testing.assert_allclose(g.cpu().numpy(), g_want.cpu().numpy(),
+                               rtol=1e-10)
+    K = k.value_fn(th.detach(), x) + nug * torch.eye(
+        n, dtype=torch.float64, device=cuda)
+    L = torch.linalg.cholesky(K)
+    np.testing.assert_allclose(sharded_cholesky(K, mesh).cpu().numpy(),
+                               L.cpu().numpy(), rtol=0, atol=1e-10)
+    thetas = torch.log(torch.linspace(0.1, 1.0, 8, dtype=torch.float64,
+                                      device=cuda))[:, None]
+    grid_mesh = Mesh([cuda] * 4, ('batch',))
+    np.testing.assert_allclose(
+        batched_lml_grid(k, x, y, thetas, nugget=nug,
+                         mesh=grid_mesh).cpu().numpy(),
+        batched_lml_grid(k, x, y, thetas, nugget=nug).cpu().numpy(),
+        rtol=1e-9)
+
+
+def test_a_mesh_on_a_missing_card_raises(cuda):
+    from gsum_tpu_torch.parallel import Mesh, make_mesh
+
+    count = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match='CUDA card'):
+        Mesh([f'cuda:{count}'], ('model',))
+    with pytest.raises(RuntimeError, match='CUDA card'):
+        make_mesh(devices=['cuda:0', f'cuda:{count}'])

@@ -2,7 +2,7 @@
 the CPU: ``batched_lml_grid`` (engines and precisions), the truncation
 and pointwise sweeps, ``batched_posterior_at`` and ``batched_predict`` on a
 posterior carried by ``convert.to_torch_posterior``; the engine table, the
-scalar engine's chunk cap, the TF32 scope and the ``mesh=`` refusal.
+scalar engine's chunk cap, the TF32 scope and the ``mesh=`` batch check.
 (The fits are in ``tests/test_torch_parallel_fit.py``.)
 
 Data: N=16 points, a ConstantKernel × RBF kernel and a 1e-3 nugget, so
@@ -371,20 +371,27 @@ def test_3xtf32_products_against_one_tf32_product(monkeypatch):
 @pytest.mark.parametrize('call', ['lml_grid', 'fit', 'pointwise',
                                   'posterior_at', 'predict'])
 def test_mesh_raises(call):
+    """A batch that does not divide over the mesh's 'batch' axis raises
+    JAX's ``_check_mesh_batch`` error (5 θ rows, 2 curves, 1 ratio, 3
+    fits over 4 shards)."""
     X, y, th = _data()
     k = to_torch_kernel(_kernel_j())
+    mesh = gt.parallel.make_mesh(n_batch=4, devices=['cpu'] * 4)
+    post = tb.batched_posterior_at(k, t(X), t(y), t(th[:3]), **PRIOR)
     fns = {
         'lml_grid': lambda: tb.batched_lml_grid(k, t(X), t(y), t(th),
-                                                mesh=object()),
-        'fit': lambda: tb.batched_fit(k, t(X), t(y.T), mesh=object()),
+                                                mesh=mesh),
+        'fit': lambda: tb.batched_fit(k, t(X), t(y.T), mesh=mesh),
         'pointwise': lambda: tb.pointwise_evidence_grid(
-            t(y), np.arange(2), t([0.5]), mesh=object()),
+            t(y), np.arange(2), t([0.5]), mesh=mesh),
         'posterior_at': lambda: tb.batched_posterior_at(
-            k, t(X), t(y), t(th), mesh=object()),
-        'predict': lambda: tb.batched_predict(k, None, t(X), t(y.T), t(X),
-                                              mesh=object()),
+            k, t(X), t(y), t(th), mesh=mesh),
+        'predict': lambda: tb.batched_predict(k, post, t(X),
+                                              t(np.stack([y] * 3)), t(X),
+                                              mesh=mesh),
     }
-    with pytest.raises(NotImplementedError, match='A, item 5'):
+    with pytest.raises(ValueError, match="not divisible by the mesh 'batch' "
+                                         'axis size 4'):
         fns[call]()
 
 

@@ -242,7 +242,12 @@ def test_validation():
     gp = _gp(gt, device='cpu')
     with pytest.raises(ValueError, match='pass X/y'):
         ts.sample_theta_posterior(gp)
-    with pytest.raises(NotImplementedError, match='item 5'):
-        ts.sample_theta_posterior(gp.fit(_t(X), _t(Y)), mesh=object())
+    csp = gt.ConjugateStudentProcess(
+        kernel=gt.RBF(0.3, (0.05, 2.0)), center=0, disp=1, df=3, scale=1,
+        nugget=1e-8, optimizer=None, device='cpu').fit(_t(X), _t(Y))
+    with pytest.raises(TypeError, match='ConjugateGaussianProcess lml'):
+        ts.sample_theta_posterior(
+            csp, mesh=gt.parallel.Mesh(['cpu'] * 2, ('model',)))
+    gp.fit(_t(X), _t(Y))
     with pytest.raises(ValueError, match='free dimensions'):
         ts.posterior_predictive(gp, _t(X), np.zeros((2, 3)))
