@@ -16,7 +16,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      (16, 4096), block 256, and checks that a non-SPD matrix is flagged;
    - the incomplete-beta kernels ``ops.incbeta.betainc`` and ``betaincinv``
      at (4096, 5), f64 and f32, on the t quantile's arguments (a = df/2,
-     b = 1/2) and the beta bands' (a, b up to about 4000);
+     b = 1/2) and the beta bands' (a, b up to about 4000), at
+     ``helpers.hpd``'s one-element quantile (a = b = 2049) at both ends, at
+     57 elements of it, on a QQ panel's 1024 t quantiles at large ν, on
+     XLA's edge values (the last three also repeated past
+     ``incbeta.WARP_MAX``), on the t quantile's arguments at ``WARP_MAX``
+     elements and one more (launches turn there from a warp per element to
+     a thread), and on the first 8192 of the beta bands' arguments in one
+     launch and, as the QQ quantiles, in launches of 32 (the warp form):
+     some of their Newton iterations do not converge;
 4. drives the eleven paths once each, with every kernel's launch count
    set to 0 just before and read just after (paths 8, 9 and 10: around
    each of their legs):
@@ -82,7 +90,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      difference); C, ``GraphicalDiagnostic`` on path 6's setup (1024
      points, nref 1000, both coefficient processes; the Student-t one
      launches the incbeta kernels) and the variogram's data at 192 points,
-     the TP against the CPU; D, ``kl_data`` on leg B's recipe (K1 under
+     the TP against the CPU (its QQ quantiles also in one launch past
+     ``incbeta.WARP_MAX``, the thread form); D, ``kl_data`` on leg B's recipe (K1 under
      the blocked fits, its launches against the derived count), 'auto'
      against 'loop' on a few draws;
    - sampling and the utilities (path 9): A, ``sample_truncation_posterior``
@@ -123,8 +132,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
 8. times the truncation models' second fit, lml + gradient and each
    ``predict`` kind, profiles one 'both' prediction of each;
 9. times the incomplete-beta kernels against their plain versions, with
-   their bounds from the continued-fraction terms they took, and path 6's
-   calls, profiles one pointwise interval;
+   their bounds from the continued-fraction terms they took and their lane
+   use, at (4096, 5), at ``helpers.hpd``'s one-element quantile and at
+   an interval's two-element one, and path 6's calls, profiles one
+   pointwise interval;
 10. times the blocked route with 3xTF32 GEMMs (``precision='high'``)
     beside it and reports its logpdf error against the f64 reference at
     the headline's nugget and two larger ones; profiles one line search
@@ -384,68 +395,38 @@ def check_fused(device):
                              f'kernel: {ok}')
 
 
-INCBETA_SHAPE = (4096, 5)
-INCBETA_DF = (1.0, 3.0, 5.0, 30.0, 6.0)   # t quantiles; 6 = path 6's ν
 INCBETA_TOL = {torch.float64: {'betainc': 1e-13, 'betaincinv': 1e-11},
                torch.float32: {'betainc': 1e-5, 'betaincinv': 1e-5}}
-CF_FLOPS = 20      # floating-point operations per continued-fraction term
-
-
-def incbeta_inputs(which, dtype, device):
-    """(a, b, u) at INCBETA_SHAPE: ``'t'``, the t quantile's a = df/2 per
-    column (df in INCBETA_DF) and b = 1/2; ``'beta'``, the beta bands' a =
-    N s + 1, b = N - N s + 1 at N = 4096 for s uniform in (0, 1).  u is
-    uniform in (0, 1): x of betainc, p of betaincinv."""
-    gen = torch.Generator(device='cpu').manual_seed(6)
-    u = torch.rand(INCBETA_SHAPE, generator=gen, dtype=torch.float64)
-    if which == 't':
-        a = torch.tensor(INCBETA_DF, dtype=torch.float64).expand(
-            INCBETA_SHAPE) / 2
-        b = torch.full(INCBETA_SHAPE, 0.5, dtype=torch.float64)
-    else:
-        s = torch.rand(INCBETA_SHAPE, generator=gen, dtype=torch.float64)
-        a, b = 4096 * s + 1, 4096 - 4096 * s + 1
-    return [v.to(device=device, dtype=dtype).contiguous() for v in (a, b, u)]
-
-
-def incbeta_err(got, want):
-    """Largest |got - want| / max(|want|, tiny), and the largest absolute
-    difference (NaN where exactly one of the two is NaN)."""
-    if not torch.equal(torch.isnan(got), torch.isnan(want)):
-        return float('nan'), float('nan')
-    ok = ~torch.isnan(want)
-    d = (got[ok].double() - want[ok].double()).abs()
-    floor = torch.finfo(want.dtype).tiny
-    rel = (d / want[ok].double().abs().clamp(min=floor)).max().item()
-    return rel, d.max().item()
-
-
 def check_incbeta(device):
-    """The incomplete-beta kernels against their plain versions on the card
-    at INCBETA_SHAPE, f64 and f32, on the t quantile's and the beta bands'
-    arguments; one launch a call.  Returns the largest absolute differences
-    in f64 by kernel."""
+    """The incomplete-beta kernels against their plain versions on the card,
+    f64 and f32, on ``time_incbeta.check_cases``: one launch a slice, the
+    plain version once over each case's elements.  Returns the largest
+    absolute differences in f64 by kernel."""
     from gsum_tpu_torch.ops import incbeta
     from gsum_tpu_torch.stats._special import betainc_plain, betaincinv_plain
+    from gsum_tpu_torch.time_incbeta import check_cases
+    from gsum_tpu_torch.time_incbeta import rel_err as incbeta_err
 
     plain = {'betainc': betainc_plain, 'betaincinv': betaincinv_plain}
     worst = {}
     for dtype in (torch.float64, torch.float32):
-        for which in ('t', 'beta'):
-            a, b, u = incbeta_inputs(which, dtype, device)
+        for which, slices in check_cases(dtype, device).items():
+            a, b, u = (torch.cat(v) for v in zip(*slices))
+            forms = sorted({incbeta.form(s[2]) for s in slices})
             for name, fn in plain.items():
                 kernel = getattr(incbeta, name)
                 before = kernel.launches
-                got = kernel(a, b, u)
+                got = torch.cat([kernel(*s) for s in slices])
                 torch.cuda.synchronize()
                 launched = kernel.launches - before
                 rel, ab = incbeta_err(got, fn(a, b, u))
                 tol = INCBETA_TOL[dtype][name]
-                print(f'incbeta.{name} {which} {tuple(a.shape)} {dtype}: '
-                      f'max rel diff vs plain {rel:.3e} (limit {tol:g}), '
+                print(f'incbeta.{name} {which} {tuple(a.shape)} {dtype} '
+                      f'(form {"/".join(("thread", "warp")[f] for f in forms)}'
+                      f'): max rel diff vs plain {rel:.3e} (limit {tol:g}), '
                       f'max abs diff {ab:.3e}, launches {launched}, '
                       f'finite {torch.isfinite(got).all().item()}')
-                if launched != 1 or not rel <= tol:
+                if launched != len(slices) or not rel <= tol:
                     raise AssertionError(f'incbeta.{name} disagrees with its '
                                          f'plain version ({which}, {dtype})')
                 if dtype == torch.float64:
@@ -1030,7 +1011,6 @@ VARIO_POINTS = (192, 64)                  # per-bin branch, batched branch
 VARIO_CPU_BINS = 3                        # the smallest bins, on the CPU
 INCBETA_TIMED = {'betainc': 'incbeta.betainc',
                  'betaincinv': 'incbeta.betaincinv'}
-F64_FLOP_PER_S = 34e12                    # f64 outside the tensor cores
 
 
 def pointwise_calls(device, y, y_next, dobs=None, band_dobs=None,
@@ -1359,52 +1339,59 @@ def model_checking_path(trunc, card, device='cuda'):
 
 def time_model_checking(out, card, kernels, counts, device='cuda'):
     """Path 6's times on the card, and the incbeta kernels against their
-    plain versions at INCBETA_SHAPE (f64 and f32) with their bounds."""
+    plain versions with their bounds and lane use: at (4096, 5) on the t
+    quantile's arguments, f64 and f32 (the kernels' line of the JSON
+    record), and, in f64, the one-element quantile of ``helpers.hpd`` and
+    the two-element one of ``TruncationPointwise.interval``."""
     from gsum_tpu_torch.ops import incbeta
     from gsum_tpu_torch.stats._special import betainc_plain, betaincinv_plain
+    from gsum_tpu_torch.time_incbeta import (CF_FLOPS, RATE, bound_ms,
+                                             device_ms, inputs, lane_terms)
+    from gsum_tpu_torch.time_incbeta import rel_err as incbeta_err
 
     plain = {'betainc': betainc_plain, 'betaincinv': betaincinv_plain}
-    for dtype in (torch.float64, torch.float32):
-        a, b, u = incbeta_inputs('t', dtype, device)
-        for name, fn in plain.items():
-            kernel = getattr(incbeta, name)
-            got, terms = incbeta.cf_terms(kernel, a, b, u)
-            err = incbeta_err(got, fn(a, b, u))[1]
-            before = kernel.launches
-            t = time_ms({'kernel': lambda: kernel(a, b, u),
-                         'plain': lambda: fn(a, b, u)}, rounds=2)
-            t_back = time_ms({'kernel': lambda: kernel(a, b, u)}, reps=10,
-                             rounds=2)['kernel']
-            device_ms = kernel_device_ms(lambda: kernel(a, b, u))
-            rate = F64_FLOP_PER_S if dtype == torch.float64 else \
-                F32_FLOP_PER_S
-            n_terms = terms.sum().item()
-            bnd = bound(4 * a.numel() * a.element_size(),
-                        CF_FLOPS * n_terms, rate)
-            # a warp runs until its slowest lane is done
-            lanes = torch.nn.functional.pad(terms.flatten(),
-                                            (0, -terms.numel() % 32))
-            warp_terms = 32 * lanes.view(-1, 32).max(1).values.sum().item()
-            print(f'timing [{card}] incbeta.{name} t {tuple(a.shape)} '
-                  f'{dtype}: kernel {device_ms:.4f} ms a launch (ten queued '
-                  f'behind a spin kernel; CUDA events around one call '
-                  f'{t["kernel"]:.4f} ms, ten back to back {t_back:.4f} ms '
-                  f'each, the host launching), plain {t["plain"]:.3f} ms, continued-fraction '
-                  f'terms {n_terms} (mean {n_terms / a.numel():.1f}, most '
-                  f'{terms.max().item()} an element; the warps run '
-                  f'{warp_terms / n_terms:.2f}× the terms), bound '
-                  f'{bnd[0]:.5f} ms ({bnd[1]}, {CF_FLOPS} flops a term at '
-                  f'{rate / 1e12:g} TFLOP/s), max abs diff {err:.3e}; '
-                  f'launches in the timing {kernel.launches - before}')
-            if dtype == torch.float64:
-                kernels.append({
-                    'name': INCBETA_TIMED[name], 'route': 'cuda',
-                    'source': KERNELS[INCBETA_TIMED[name]][0],
-                    'replaces': KERNELS[INCBETA_TIMED[name]][1],
-                    'launches': counts[INCBETA_TIMED[name]],
-                    'max_abs_err': err, 'ms': device_ms,
-                    'plain_ms': t['plain'], 'bound_ms': bnd[0],
-                    'bound_by': bnd[1], 'library_ms': None})
+    rows = [(dtype, 't', name) for dtype in (torch.float64, torch.float32)
+            for name in plain]
+    rows += [(torch.float64, which, 'betaincinv')
+             for which in ('hpd 0.16', 'hpd 0.84', 'interval')]
+    for dtype, which, name in rows:
+        a, b, u = inputs(which, dtype, device)
+        kernel, fn = getattr(incbeta, name), plain[name]
+        got, terms, chunks = incbeta.cf_terms(kernel, a, b, u)
+        err = incbeta_err(got, fn(a, b, u))[1]
+        before = kernel.launches
+        t = time_ms({'kernel': lambda: kernel(a, b, u),
+                     'plain': lambda: fn(a, b, u)}, rounds=2)
+        t_back = time_ms({'kernel': lambda: kernel(a, b, u)}, reps=10,
+                         rounds=2)['kernel']
+        ms = device_ms({'kernel': lambda: kernel(a, b, u)})['kernel']
+        n_terms = terms.sum().item()
+        bnd = bound_ms(n_terms, u.numel(), dtype)
+        form = incbeta.form(u)
+        lanes = lane_terms(terms, chunks, form)
+        print(f'timing [{card}] incbeta.{name} {which} {tuple(a.shape)} '
+              f'{dtype} ({("a thread", "a warp")[form]} per element): kernel '
+              f'{ms:.4f} ms a launch (ten queued behind a spin kernel, the '
+              f'median of five; CUDA events around one call '
+              f'{t["kernel"]:.4f} ms, ten back to back {t_back:.4f} ms '
+              f'each, the host launching), plain {t["plain"]:.3f} ms, '
+              f'continued-fraction terms {n_terms} (mean '
+              f'{n_terms / u.numel():.1f}, most {terms.max().item()} an '
+              f'element; lane use {n_terms / max(lanes, 1):.4f}'
+              + (f', chunk use {n_terms / (8 * chunks.sum().item()):.3f}'
+                 if form else '') + f'), bound {bnd[0]:.3e} ms ({bnd[1]}, '
+              f'{CF_FLOPS} flops a term at {RATE[dtype] / 1e12:g} '
+              f'TFLOP/s), max abs diff {err:.3e}; launches in the timing '
+              f'{kernel.launches - before}')
+        if dtype == torch.float64 and which == 't':
+            kernels.append({
+                'name': INCBETA_TIMED[name], 'route': 'cuda',
+                'source': KERNELS[INCBETA_TIMED[name]][0],
+                'replaces': KERNELS[INCBETA_TIMED[name]][1],
+                'launches': counts[INCBETA_TIMED[name]],
+                'max_abs_err': err, 'ms': ms,
+                'plain_ms': t['plain'], 'bound_ms': bnd[0],
+                'bound_by': bnd[1], 'library_ms': None})
     # the path's own calls, on the card
     import gsum_tpu_torch as gt
     X, c, y, _, _ = trunc_data(device)
@@ -2226,6 +2213,20 @@ def derivative_checking_path(trunc, card, device='cuda'):
         errs[f'{m} bands'] = (max(rel_err(b, b2) for p, p2 in
                                   zip(bands, bands_c) for b, b2 in
                                   zip(p, p2)), tol)
+    # the panel's launch of len(Xv) quantiles takes the warp form; the
+    # same quantiles in one launch past WARP_MAX take the thread form (at
+    # this large ν some of their 50 Newton steps do not converge, and
+    # where they end follows every rounding)
+    from gsum_tpu_torch.ops import incbeta
+
+    ref = g.diagnostic.std_udist
+    probs = (np.arange(1, len(Xv) + 1) - 0.5) / len(Xv)
+    reps = incbeta.WARP_MAX // len(probs) + 1
+    whole = np.asarray(ref.ppf(np.tile(probs, reps)).cpu())[:len(probs)]
+    errs['theoretical quantiles in one launch past WARP_MAX'] = (
+        rel_err(whole, tq_c), 1e-11)
+    print(f'main path (derivatives, C): the TP reference\'s degrees of '
+          f'freedom {float(np.asarray(torch.as_tensor(ref.df).cpu())):g}')
     # coverage at 5 of the 50 intervals (each interval's coverage and band
     # stand alone; the CPU's plain quantiles take seconds per interval)
     cov_d, bands_d = gd[name, 'coverage']
@@ -2891,24 +2892,6 @@ def mesh_path(card, device='cuda'):
     if problems:
         raise AssertionError('path 10: ' + '; '.join(problems))
     return launches
-
-
-def kernel_device_ms(fn, calls=10):
-    """Device time in ms of one call of ``fn``: CUDA events around
-    ``calls`` calls queued behind a spin kernel, so that the card runs them
-    back to back however long the host takes to launch them (a short
-    kernel's event time is otherwise its wrapper's host time)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)       # ~0.1 s: the queue fills behind it
-    start.record()
-    for _ in range(calls):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / calls
 
 
 def drive(fn):

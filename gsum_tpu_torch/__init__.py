@@ -43,6 +43,12 @@ from . import (checkpoint, conjugate, convert, datasets, derivs, diagnostics,
                entry, helpers, kernels, linalg, models, ops, optimize,
                parallel, pdfmeta, profiling, sample, stats, viz)
 from ._config import default_device, default_dtype, resolve_device
+from .datasets import (
+    make_gaussian_partial_sums,
+    make_gaussian_partial_sums_on_grid,
+    make_gaussian_partial_sums_uniform,
+)
+from .derivs import deriv_cov, deriv_mean, kernel_deriv_cov
 from .diagnostics import Diagnostic, GraphicalDiagnostic
 from .helpers import (
     VariogramFourthRoot,
@@ -73,6 +79,8 @@ from .kernels import (
     DotProduct,
     Exponentiation,
     ExpSineSquared,
+    Hyperparameter,
+    Kernel,
     Matern,
     Product,
     RationalQuadratic,
@@ -87,6 +95,14 @@ from .models import (
     TruncationProcess,
     TruncationPointwise,
     TruncationTP,
+)
+from .pdfmeta import add_pdf_metadata, get_pdf_metadata
+from .sample import (
+    hmc,
+    posterior_predictive,
+    sample_theta_posterior,
+    sample_truncation_posterior,
+    truncation_posterior_predictive,
 )
 
 __all__ = ['checkpoint', 'conjugate', 'convert', 'datasets', 'derivs',
@@ -104,4 +120,10 @@ __all__ = ['checkpoint', 'conjugate', 'convert', 'datasets', 'derivs',
            'partials', 'predictions', 'stabilize', 'gaussian', 'hpd',
            'hpd_pdf', 'median_pdf', 'kl_gauss', 'rbf', 'default_attributes',
            'cholesky_errors', 'mahalanobis', 'lazy_property', 'lazy',
-           'VariogramFourthRoot', 'geometric_sum', 'pivoted_cholesky']
+           'VariogramFourthRoot', 'geometric_sum', 'pivoted_cholesky',
+           'Kernel', 'Hyperparameter', 'make_gaussian_partial_sums',
+           'make_gaussian_partial_sums_on_grid',
+           'make_gaussian_partial_sums_uniform', 'add_pdf_metadata',
+           'get_pdf_metadata', 'deriv_cov', 'deriv_mean', 'kernel_deriv_cov',
+           'hmc', 'posterior_predictive', 'sample_theta_posterior',
+           'sample_truncation_posterior', 'truncation_posterior_predictive']

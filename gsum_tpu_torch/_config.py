@@ -16,6 +16,8 @@ counterpart: PyTorch runs eagerly and its kernels are built by ``_build``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -55,6 +57,16 @@ def result_dtype(dtype):
     casts to this dtype before any arithmetic.
     """
     return torch.promote_types(default_dtype(), dtype)
+
+
+def promoted(*tensors):
+    """The tensors in their promoted dtype: f32 data beside f64
+    covariances (f64 θ, or a fixed hyperparameter, an f64 constant) become
+    f64, as JAX's arithmetic promotes them where torch's solves and
+    products refuse to mix.  A no-op where the dtypes agree."""
+    dtype = functools.reduce(torch.promote_types,
+                             (t.dtype for t in tensors))
+    return [t.to(dtype) for t in tensors]
 
 
 def as_input(x, device=None):

@@ -753,7 +753,10 @@ _CHOL_ENGINES = {'auto': _auto_chol, 'xla': cholesky, 'blocked': _blocked_chol}
 
 def _resolve_chol_fn(engine):
     """Maps a ``chol_engine`` name ('auto' | 'xla' | 'blocked') to the
-    Cholesky function of the lml, fit and predict."""
+    Cholesky function of the lml, fit and predict; a callable (the
+    ``chol_fn`` of ``parallel.make_lml_fn``) is that function."""
+    if callable(engine):
+        return engine
     try:
         return _CHOL_ENGINES[engine]
     except KeyError:
@@ -801,11 +804,12 @@ class ConjugateGaussianProcess(BaseConjugateProcess):
                                   _resolve_chol_fn(self.chol_engine))
         # f32 data (the batched fits' scalar engine; the models hold f64):
         # factor in f32, then solve and update in f64, where JAX promotes
-        wide = result_dtype(R.dtype)
+        # (and f32 data beside f64 covariances, which JAX promotes)
+        wide = torch.promote_types(result_dtype(R.dtype), y.dtype)
         if wide != R.dtype:
             sqrt_R = (sqrt_R.to(wide) if decomposition == 'cholesky'
                       else tuple(t.to(wide) for t in sqrt_R))
-            y, basis = y.to(wide), basis.to(wide)
+        y, basis = y.to(wide), basis.to(wide)
 
         df = _conj.compute_df(y=y, df0=df0)
         center = _conj.compute_center(y, sqrt_R, basis, center0=center0,

@@ -96,7 +96,7 @@ def batched_mvn_logpdf(K, diff):
 
 
 def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
-                        diag='auto', block=None, precision=None):
+                        precision=None, diag='auto', block=None):
     R"""Pipeline: covariance build → Cholesky → MVN logpdf.
 
     Parameters
@@ -111,16 +111,16 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
         (``ops.fusedchol``, f32 only, N a multiple of the block); 'xla' is
         ``torch.linalg.cholesky`` (the name is the JAX package's); 'auto'
         selects 'blocked' for N > 512.
+    precision : None (= 'highest') | 'highest' | 'high' — arithmetic of
+        the blocked route's factorization GEMMs ('high' is 3xTF32, three
+        TF32 tensor-core products on split operands,
+        ``ops.blockchol._mm``).  The covariance build and the solve stay
+        full f32, as in JAX, and the fused route's kernel and the diagonal
+        kernel do FFMA arithmetic, unaffected.
     diag : the blocked factorization's diagonal-block engine, 'auto' |
         'kernel' | 'recursive' (``torch.linalg``)
     block : column-block width, or None for the selected engine's default
         (blocked: 128, fused: 256)
-    precision : None | 'highest' | 'high' — arithmetic of the blocked
-        route's factorization GEMMs ('high' is 3xTF32, three TF32
-        tensor-core products on split operands, ``ops.blockchol._mm``).
-        The covariance build and the solve stay full f32, as in JAX, and
-        the fused route's kernel and the diagonal kernel do FFMA
-        arithmetic, unaffected.
 
     Returns
     -------

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from .._config import promoted
 from .chol_inv import (MAX_NB, _cholesky_nan, _tri_inv, chol_inv_block,
                        chol_inv_block_plain)
 
@@ -269,22 +270,28 @@ def _logdet_from_chol(L):
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
 
 
-def blocked_chol_solve_logdet(K, Y, block=256, diag='auto', precision=None):
+def blocked_chol_solve_logdet(K, Y, block=256, leaf=32, precision=None,
+                              diag='auto'):
     R"""Factors K, solves ``L w = Y``, and returns (w, logdet K) in one pass.
 
     Parameters
     ----------
-    K : (..., N, N) SPD;  Y : (..., N, m)
+    K : (..., N, N) SPD;  Y : (..., N, m) — an f32 Y beside an f64 K (or
+        the reverse) is promoted, as JAX's arithmetic promotes
     block : column-block width; N ≤ block factors K in one piece
+    leaf : accepted for the JAX signature; it has no effect (the JAX
+        package's leaf recursion of the diagonal blocks is its TPU
+        kernel's, and the port factors a diagonal block whole)
+    precision : None (= 'highest') | 'highest' | 'high' — the
+        factorization's GEMMs' arithmetic (``'high'``: 3xTF32 on CUDA
+        float32); the solve of Y is full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block engine
-    precision : None | 'highest' | 'high' — the factorization's GEMMs'
-        arithmetic (``'high'``: 3xTF32 on CUDA float32); the solve of Y
-        is full f32
 
     Returns
     -------
     (w, logdet): ``w = L⁻¹ Y`` with ``K = L Lᵀ``, and log|K| (...,)
     """
+    K, Y = promoted(K, Y)
     N = K.shape[-1]
     split = _split_gemms(precision, K)
     if N <= block:
@@ -302,13 +309,14 @@ def blocked_chol_solve_logdet(K, Y, block=256, diag='auto', precision=None):
     return w, _logdet_from_chol(L)
 
 
-def blocked_factor(K, block=128, diag='auto', precision=None):
+def blocked_factor(K, block=128, leaf=32, precision=None, diag='auto'):
     R"""Factors (..., N, N) SPD K, returning ``(L, minvs)`` for reuse.
 
     N is padded to a block multiple internally; L comes back un-padded, the
     diagonal-block inverses ``minvs`` padded (the trailing identity block
     solves the padded rows as identity, which :func:`blocked_cho_solve`
-    slices away).  Not differentiable.
+    slices away).  Not differentiable.  ``leaf`` is accepted for the JAX
+    signature and has no effect (see :func:`blocked_chol_solve_logdet`).
     """
     N = K.shape[-1]
     Kp, pad = _pad_spd(K, block)
@@ -510,4 +518,5 @@ def blocked_spd_solve_logdet(K, Y, block=128, leaf=32, precision=None,
         the forward's solves of Y are full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block engine
     """
-    return _BlockedSpdSolveLogdet.apply(K, Y, block, diag, precision)
+    return _BlockedSpdSolveLogdet.apply(*promoted(K, Y), block, diag,
+                                        precision)

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .._config import promoted
 from .smallchol import _flag, batched_small_cholesky, batched_small_tri_inv
 
 __all__ = ['cgp_lml_grid', 'cgp_lml_grid2', 'csp_lml_grid',
@@ -30,9 +31,11 @@ _LOG_2PI = math.log(2 * math.pi)
 
 
 def batched_cho_solve(L, B, leaf=16):
-    """Solves ``(L Lᵀ) X = B`` batched (``torch.cholesky_solve``).  The JAX
-    package solves through the triangular inverse and two products, a TPU
-    workaround; ``leaf`` is accepted for its signature and ignored."""
+    """Solves ``(L Lᵀ) X = B`` batched (``torch.cholesky_solve``), L and B
+    promoted to one dtype.  The JAX package solves through the triangular
+    inverse and two products, a TPU workaround; ``leaf`` is accepted for
+    its signature and ignored."""
+    L, B = promoted(L, B)
     return torch.cholesky_solve(B, L)
 
 
@@ -104,6 +107,13 @@ def cgp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16,
     """
     if y.ndim == 1:
         y = y[:, None]
+    if engine == 'scan' and not Rs.dtype == y.dtype == basis.dtype:
+        # JAX's scan engine raises here too (a TypeError of
+        # lax.dynamic_update_slice)
+        raise TypeError(f"the 'scan' engine takes one dtype, got "
+                        f"covariances {Rs.dtype}, data {y.dtype} and basis "
+                        f"{basis.dtype}")
+    Rs, y, basis = promoted(Rs, y, basis)
     G, N, _ = Rs.shape
     m = y.shape[-1]
     p = basis.shape[1]
@@ -238,6 +248,7 @@ def cgp_lml_grid2(Rs, Ys, basis, center0, disp0, df0, scale0, leaf=16):
     -------
     (T, R) log-marginal likelihoods
     """
+    Rs, Ys, basis = promoted(Rs, Ys, basis)
     T, N, _ = Rs.shape
     R, _, m = Ys.shape
     dtype, dev = Rs.dtype, Rs.device
@@ -285,6 +296,7 @@ def csp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16):
     """
     if y.ndim == 1:
         y = y[:, None]
+    Rs, y, basis = promoted(Rs, y, basis)
     G, N, _ = Rs.shape
     m = y.shape[1]
     p = basis.shape[1]
@@ -353,6 +365,7 @@ def csp_lml_grid2(Rs, Ys, basis, center0, disp0, df0, scale0, leaf=16):
     and finite ν₀ only, as in JAX (anything else raises
     ``NotImplementedError``).
     """
+    Rs, Ys, basis = promoted(Rs, Ys, basis)
     T, N, _ = Rs.shape
     R, _, m = Ys.shape
     center0, _, disp0_zero, df0_inf = _priors(center0, disp0, df0, Rs)

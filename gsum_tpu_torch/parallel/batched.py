@@ -102,21 +102,22 @@ def _engine(engine):
 
 
 def make_lml_fn(kernel, center=0, disp=0, df=1, scale=1, nugget=1e-10,
-                decomposition='cholesky', chol_fn='xla'):
+                decomposition='cholesky', chol_fn=None):
     """Plain lml function ``(theta, X, y2d, basis) -> 0-d tensor`` for a
     kernel structure and concrete priors: ``ConjugateGaussianProcess._lml``
     on a frozen clone of ``kernel``.  It vmaps over θ (``torch.func``).
 
-    ``chol_fn`` names the Cholesky engine ('xla' — ``torch.linalg``, the
-    JAX default — 'auto' or 'blocked'; see the models' ``chol_engine``).
-    The model object only carries the priors; the lml computes on its
-    inputs' device.
+    ``chol_fn`` is the Cholesky factorization, as in JAX: None for
+    ``torch.linalg`` (JAX's default, the models' 'xla'), a callable
+    ``R -> L`` used as it is, or one of the models' ``chol_engine``
+    names ('xla', 'auto', 'blocked').  The model object only carries the
+    priors; the lml computes on its inputs' device.
     """
     frozen = kernel.clone()
     gp = ConjugateGaussianProcess(
         kernel=frozen, center=center, disp=disp, df=df, scale=scale,
-        nugget=nugget, decomposition=decomposition, chol_engine=chol_fn,
-        device='cpu')
+        nugget=nugget, decomposition=decomposition,
+        chol_engine='xla' if chol_fn is None else chol_fn, device='cpu')
 
     def lml_fn(theta, X, y, basis):
         return gp._lml(frozen, theta, X, y, basis)

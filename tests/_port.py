@@ -9,9 +9,22 @@ package only, never against the original library.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from gsum_tpu_torch.convert import to_torch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_intra_op_thread():
+    """One intra-op torch thread for a test module that imports this
+    fixture: in the suite's six workers, more threads cost more in
+    contention (with each other and with the JAX tests' own threads) than
+    they save."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_numpy(tree):

@@ -13,6 +13,7 @@ from gsum_tpu_torch.convert import to_torch
 from gsum_tpu_torch.ops import batched, blockchol
 
 from _port import compare
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def inputs(seed, B, N, d, m, dtype):

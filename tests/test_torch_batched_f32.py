@@ -6,6 +6,7 @@ import pytest
 
 from _port import compare
 from test_torch_batched import inputs, pipeline
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('method', ['blocked', 'xla'])

@@ -13,6 +13,7 @@ from gsum_tpu.ops import blockchol as jax_blockchol
 from gsum_tpu_torch.ops import blockchol
 
 from _port import compare, spd
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('B,N,m,block', [(2, 384, 5, 128), (2, 320, 5, 128)])

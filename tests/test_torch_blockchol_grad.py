@@ -18,6 +18,7 @@ from gsum_tpu.ops import blockchol as jax_blockchol
 from gsum_tpu_torch.ops import batched_blocked_cholesky, blocked_spd_solve_logdet
 
 from _port import spd
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-9
 

@@ -14,6 +14,7 @@ import torch
 
 from gsum_tpu.ops import blockchol as jbc
 from gsum_tpu_torch.ops import blockchol as tbc
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N = 300
 

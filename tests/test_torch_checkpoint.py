@@ -19,6 +19,7 @@ import gsum_tpu_torch as gt
 from gsum_tpu import checkpoint as jc
 from gsum_tpu_torch import checkpoint as tc
 from gsum_tpu_torch.convert import to_torch_kernel
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 EPS = np.finfo(float).eps
 X = np.linspace(0, 1, 10)[:, None]

@@ -18,6 +18,7 @@ from gsum_tpu.ops.pallas_chol import chol_inv_block as jax_chol_inv_block
 from gsum_tpu_torch.ops import chol_inv_block
 
 from _port import compare
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

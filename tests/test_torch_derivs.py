@@ -23,6 +23,7 @@ import gsum_tpu as gm
 from gsum_tpu import derivs as jd
 from gsum_tpu_torch import derivs as td
 from gsum_tpu_torch.convert import to_torch_kernel
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-12
 rng = np.random.RandomState(11)

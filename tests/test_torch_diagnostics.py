@@ -31,6 +31,7 @@ from gsum_tpu import helpers as jh
 from gsum_tpu_torch import helpers as th
 from gsum_tpu_torch import stats as tst
 from gsum_tpu_torch.diagnostics import Diagnostic
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = 'cpu'
 EPS = np.finfo(float).eps

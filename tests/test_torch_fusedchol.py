@@ -20,6 +20,7 @@ from gsum_tpu_torch.ops import (batched_chol_logpdf, fused_blocked_cholesky,
 
 from _port import spd, to_numpy
 from test_torch_batched import inputs
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 B, N, BLOCK = 2, 128, 64
 PALLAS = dict(block=BLOCK, chunk=2, panel=32, interpret=True)

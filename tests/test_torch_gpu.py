@@ -424,24 +424,65 @@ def _incbeta_args(name, dtype, device, n=2048, seed=0):
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 @pytest.mark.parametrize('name', ['betainc', 'betaincinv'])
 def test_incbeta_kernel_matches_plain(cuda, name, dtype):
-    """One launch; relative difference from the plain version on the card
-    at most 1e-13 (betainc) and 1e-11 (betaincinv) in f64, 1e-5 in f32
-    (tiny as the floor of the denominator), NaN where it is NaN."""
+    """One launch a call; relative difference from the plain version on the
+    card at most 1e-13 (betainc) and 1e-11 (betaincinv) in f64, 1e-5 in f32
+    (tiny as the floor of the denominator), NaN where it is NaN.  On the
+    random arguments above, and on ``time_incbeta.check_cases``: the one-
+    element quantile of ``helpers.hpd`` (a = b = 2049) at both of its ends,
+    57 elements of it, a QQ panel's t quantiles at large ν, XLA's edge
+    values, the last three also repeated past ``incbeta.WARP_MAX`` elements
+    (the thread form), the t quantile's arguments at ``WARP_MAX`` elements
+    and one more (the two sides of the size at which launches turn from a
+    warp per element to a thread), and the QQ quantiles and the first 8192
+    of the beta bands' arguments in launches of 32 (the warp form), some of
+    whose 50 Newton steps do not converge."""
     from gsum_tpu_torch.ops import incbeta
     from gsum_tpu_torch.stats import _special
+    from gsum_tpu_torch.time_incbeta import check_cases
 
-    a, b, u = _incbeta_args(name, dtype, cuda)
+    cases = {'random': [_incbeta_args(name, dtype, cuda)]}
+    cases.update(check_cases(dtype, cuda))
+    w = incbeta.WARP_MAX
+    assert [incbeta.form(cases[f't[:{n}]'][0][2]) for n in (w, w + 1)] \
+        == [1, 0]
     kernel = getattr(incbeta, name)
-    before = kernel.launches
-    got = kernel(a, b, u)
-    want = getattr(_special, name + '_plain')(a, b, u)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + 1
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    ok = ~torch.isnan(want)
-    rel = ((got[ok] - want[ok]).abs()
-           / want[ok].abs().clamp(min=torch.finfo(dtype).tiny)).max().item()
-    assert rel <= INCBETA_TOL[dtype][name], rel
+    for which, slices in cases.items():
+        a, b, u = (torch.cat(v) for v in zip(*slices))
+        before = kernel.launches
+        got = torch.cat([kernel(*args) for args in slices])
+        want = getattr(_special, name + '_plain')(a, b, u)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + len(slices), which
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), which
+        ok = ~torch.isnan(want)
+        rel = ((got[ok] - want[ok]).abs()
+               / want[ok].abs().clamp(min=torch.finfo(dtype).tiny)).max()
+        assert rel.item() <= INCBETA_TOL[dtype][name], (which, rel.item())
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('name', ['betainc', 'betaincinv'])
+def test_incbeta_value_does_not_depend_on_the_launch(cuda, name, dtype):
+    """The warp form (launches of at most ``incbeta.WARP_MAX`` elements) and
+    the thread form (larger ones) give each element the same value, bit
+    for bit: the QQ quantiles and the first 8192 of the beta bands'
+    arguments in launches of 32 against one launch past ``WARP_MAX``."""
+    from gsum_tpu_torch.ops import incbeta
+    from gsum_tpu_torch.time_incbeta import check_cases
+
+    cases = check_cases(dtype, cuda)
+    kernel = getattr(incbeta, name)
+    w = incbeta.WARP_MAX
+    for sliced, whole in (('qq', f'qq repeated past {w}'),
+                          ('beta[:8192]', 'beta[:8192]')):
+        slices = cases[f'{sliced} in launches of 32']
+        assert {incbeta.form(args[2]) for args in slices} == {1}
+        got = torch.cat([kernel(*args) for args in slices])
+        args = cases[whole][0]
+        assert incbeta.form(args[2]) == 0
+        want = kernel(*args)[:got.numel()]
+        assert torch.equal(got.nan_to_num(nan=2.0),
+                           want.nan_to_num(nan=2.0)), sliced
 
 
 def test_incbeta_refuses_what_it_does_not_take(cuda):

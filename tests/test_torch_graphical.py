@@ -32,6 +32,7 @@ import torch
 import gsum_tpu as gm
 import gsum_tpu_torch as gt
 from gsum_tpu_torch import viz
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 EPS = np.finfo(float).eps
 rng = np.random.RandomState(3)

@@ -17,6 +17,7 @@ import torch
 import gsum_tpu as gm
 import gsum_tpu_torch as gt
 from gsum_tpu_torch.convert import to_torch_kernel
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 COLORS = ['C0', 'C1', 'C2']
 

@@ -13,6 +13,7 @@ to about 1e-12 (``torch.special.gammainc`` against JAX's,
 ``tests/test_torch_special.py``).
 """
 import matplotlib
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 matplotlib.use('Agg')
 

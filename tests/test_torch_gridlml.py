@@ -17,6 +17,7 @@ import torch
 
 from gsum_tpu.ops import gridlml as jg
 from gsum_tpu_torch.ops import gridlml as tg
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, M = 12, 2
 VTOL, GTOL = 1e-10, 1e-8

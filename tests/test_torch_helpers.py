@@ -20,6 +20,7 @@ from gsum_tpu_torch import datasets as tds
 from gsum_tpu_torch import helpers as th
 
 from _port import compare
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-12
 rng = np.random.RandomState(0)

@@ -13,6 +13,7 @@ import torch
 import gsum_tpu.kernels as gk
 import gsum_tpu_torch.kernels as tk
 from gsum_tpu_torch.convert import to_torch_kernel
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 X = np.random.RandomState(0).rand(9, 2)
 Y = np.random.RandomState(1).rand(5, 2)

@@ -15,6 +15,7 @@ from gsum_tpu_torch import conjugate as tconj
 from gsum_tpu_torch import linalg as tla
 
 from _port import compare
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-10
 rng = np.random.RandomState(0)

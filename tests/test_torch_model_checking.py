@@ -33,6 +33,7 @@ import gsum_tpu as gm
 from gsum_tpu import helpers as jh
 from gsum_tpu_torch.convert import to_torch_model
 from gsum_tpu_torch.diagnostics import Diagnostic
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 EPS = np.finfo(float).eps
 rng = np.random.RandomState(11)

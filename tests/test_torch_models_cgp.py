@@ -22,6 +22,7 @@ import torch
 import gsum_tpu as gm
 import gsum_tpu_torch as gt
 from gsum_tpu_torch.convert import to_torch_kernel
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from __graft_entry__ import entry  # noqa: E402

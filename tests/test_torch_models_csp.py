@@ -18,6 +18,7 @@ import torch
 
 import gsum_tpu as gm
 from gsum_tpu_torch.convert import to_torch_model
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-10
 N = 20

@@ -27,6 +27,7 @@ import gsum_tpu_torch as gt
 from _derivs import (DNEW, DORD, PRIORS, THETA, XNEW, X, Y, N, _kernel,
                      _close, _limit, _t, check_fit_state_and_lml,
                      check_predict_with_derivatives, fitted)
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def test_fit_state_and_lml_match_jax():

@@ -17,6 +17,7 @@ import torch
 
 from gsum_tpu import optimize as jopt
 from gsum_tpu_torch import optimize as topt
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 CASES = [
     # (lo, hi, x0, optimum), as tests/test_optimize.py

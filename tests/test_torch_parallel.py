@@ -23,6 +23,7 @@ import gsum_tpu_torch as gt
 from gsum_tpu.parallel import batched as jb
 from gsum_tpu_torch.convert import to_torch_kernel, to_torch_posterior
 from gsum_tpu_torch.parallel import batched as tb
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, NUG = 16, 1e-3
 TOL = 1e-10

@@ -22,6 +22,7 @@ import gsum_tpu as gj
 from gsum_tpu.parallel import batched as jb
 from gsum_tpu_torch.convert import to_torch_kernel
 from gsum_tpu_torch.parallel import batched as tb
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, B, MAXITER, LS = 16, 3, 5, 4
 FIT = dict(df=3, scale=1.5, nugget=1e-3, maxiter=MAXITER, ls_steps=LS)

@@ -22,21 +22,12 @@ from gsum_tpu_torch.convert import to_torch_kernel, to_torch_posterior
 from gsum_tpu_torch.entry import dryrun_multichip
 from gsum_tpu_torch.parallel import batched as tb
 from gsum_tpu_torch.parallel import make_mesh
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, B = 16, 8
 PRIOR = dict(df=3, scale=1.5, nugget=1e-3)
 FIELDS = ('theta', 'lml', 'center', 'disp', 'df', 'scale_sq', 'cov_factor',
           'chol')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_intra_op_thread():
-    """Many tiny torch operations (a loop over 8 shards): in the suite's six
-    workers, intra-op threads cost more in contention than they save."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kernel_j():

@@ -31,20 +31,11 @@ from gsum_tpu_torch.optimize import fixed_lbfgs_bounded
 from gsum_tpu_torch.parallel import Mesh, make_mesh, shard_batch
 from gsum_tpu_torch.parallel import mesh as tmesh
 from gsum_tpu_torch.parallel import pchol as tp
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, D = 64, 8
 TOL = 1e-10
 NUG = 1e-3       # condition numbers about 4e4 at N = 64 (cond·ε 9e-12)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_intra_op_thread():
-    """Many tiny torch operations (a loop over 8 shards): in the suite's six
-    workers, intra-op threads cost more in contention than they save."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

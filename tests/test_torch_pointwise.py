@@ -22,6 +22,7 @@ import gsum_tpu as gm
 from gsum_tpu import helpers as jh
 from gsum_tpu_torch import models as tm
 from gsum_tpu_torch.convert import to_torch_model
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-10
 CPU = 'cpu'

@@ -17,6 +17,7 @@ from gsum_tpu_torch.ops import (rbf_covariance_pallas,
                                 rbf_covariance_pallas_plain)
 
 from _port import compare
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 LS, AMP, NOISE = 0.5, 2.0, 0.1
 

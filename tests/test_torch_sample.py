@@ -33,6 +33,7 @@ from gsum_tpu import sample as js
 from gsum_tpu_torch import optimize as topt
 from gsum_tpu_torch import sample as ts
 from gsum_tpu_torch.convert import to_torch_model
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 X = np.linspace(0, 1, 12)[:, None]
 Y = np.column_stack([np.sin(3 * X[:, 0]), np.cos(2 * X[:, 0]) - 1,

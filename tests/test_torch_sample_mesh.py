@@ -19,21 +19,12 @@ import torch
 import gsum_tpu_torch as gt
 from gsum_tpu_torch import sample as ts
 from gsum_tpu_torch.parallel import Mesh
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N = 32
 X = np.linspace(0, 1, N)[:, None]
 Y = np.column_stack([np.sin(3 * X[:, 0]), np.cos(2 * X[:, 0]) - 1,
                      np.sin(5 * X[:, 0])])
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_intra_op_thread():
-    """Many tiny torch operations (a loop over 8 shards): in the suite's six
-    workers, intra-op threads cost more in contention than they save."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):

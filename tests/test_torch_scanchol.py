@@ -18,6 +18,7 @@ from gsum_tpu.ops import blockchol as jbc
 from gsum_tpu.ops import scanchol as jscan
 from gsum_tpu_torch.ops import blockchol as tbc
 from gsum_tpu_torch.ops import scanchol as tscan
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, BLOCK = 70, 32
 TOL = 1e-12

@@ -19,6 +19,7 @@ import torch
 
 from gsum_tpu.ops import smallchol as jsc
 from gsum_tpu_torch.ops import smallchol as tsc
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = {np.float64: (1e-12, 1e-10), np.float32: (2e-5, 1e-4)}
 NS = (5, 16, 40)

@@ -42,6 +42,7 @@ from jax.scipy.special import betainc as jax_betainc
 
 from gsum_tpu.stats import _special as jsp
 from gsum_tpu_torch.stats import _special as tsp
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 EPS = np.finfo(np.float64).eps
 GRID = (0.1, 0.5, 1.0, 2.5, 5.0, 30.0, 500.0, 4000.0)

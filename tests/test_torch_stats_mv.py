@@ -18,6 +18,7 @@ import torch
 
 from gsum_tpu import stats as jst
 from gsum_tpu_torch import stats as tst
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-10
 N_DRAWS = 20000

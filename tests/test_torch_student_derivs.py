@@ -26,6 +26,7 @@ from gsum_tpu_torch.convert import to_torch_model
 
 from _derivs import (_close, _limit, _t, check_fit_state_and_lml,
                      check_predict_with_derivatives)
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 N = 10
 X = np.linspace(0.0, 1.0, N)[:, None]

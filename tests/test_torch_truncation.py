@@ -24,6 +24,7 @@ from gsum_tpu_torch.convert import to_torch_model
 from _truncation import (DX, DY, N, ORDERS, PRIORS, RATIO, REF, RTOL, THETA,
                          X, XNEW, Y, at_theta, close, interp_tol, jax_kernel,
                          models, pairs, ratio_jax, t)
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope='module')

@@ -29,6 +29,7 @@ from gsum_tpu_torch.convert import to_torch_model
 from _truncation import (DX, DY, LENGTH_SCALES, ORDERS, PRIORS, RTOL, THETA,
                          X, XNEW, Y, at_theta, close, interp_tol, jax_kernel,
                          pairs, ratio_jax, ratio_torch, t)
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('conditioning,constrained', [

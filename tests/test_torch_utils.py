@@ -11,6 +11,7 @@ import json
 import os
 
 import matplotlib
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 matplotlib.use('Agg')
 

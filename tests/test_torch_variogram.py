@@ -19,6 +19,7 @@ from gsum_tpu import helpers as jh
 from gsum_tpu_torch import _accmath as tacc
 from gsum_tpu_torch import helpers as th
 from gsum_tpu_torch.diagnostics import Diagnostic
+from _port import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = 'cpu'
 rng = np.random.RandomState(5)
