@@ -188,6 +188,19 @@ KERNELS = {
         "not a Pallas kernel: gsum_tpu/stats/_special.py:33 with XLA's "
         'betainc inside'),
 }
+# each kernel's launch counter in gsum_tpu_torch.profiling
+LAUNCH_COUNTERS = {'chol_inv_block': 'k1.launches',
+                   'rbf_covariance_pallas': 'k2.launches',
+                   'fused_blocked_cholesky': 'k3.launches',
+                   'incbeta.betainc': 'p1.betainc.launches',
+                   'incbeta.betaincinv': 'p1.betaincinv.launches'}
+
+
+def launched(kernel):
+    """The launches of ``kernel`` (a key of KERNELS) so far."""
+    from gsum_tpu_torch.profiling import counters
+
+    return counters()[LAUNCH_COUNTERS[kernel]]
 
 
 def flops_chol_logpdf(B, N, d, m):
@@ -336,17 +349,17 @@ def check_rbf(device):
                                ((2, 512, 1), torch.float64, 1e-14),
                                ((2, 4097, 2), torch.float64, 1e-14)):
         X = torch.tensor(rng.rand(*shape), dtype=dtype, device=device)
-        before = rbf_covariance_pallas.launches
+        before = launched('rbf_covariance_pallas')
         K = rbf_covariance_pallas(X, LS, AMP, NOISE)
         torch.cuda.synchronize()
-        launched = rbf_covariance_pallas.launches - before
+        n_launched = launched('rbf_covariance_pallas') - before
         err = (K - rbf_covariance_pallas_plain(X, LS, AMP, NOISE)
                ).abs().max().item()
         symmetric = torch.equal(K, K.mT)
         print(f'rbf_covariance_pallas {shape} {dtype}: max |K-Kplain| '
               f'{err:.3e} (limit {atol:g}), K == K.mT {symmetric}, '
-              f'launches {launched}')
-        if launched != 1 or not err <= atol or not symmetric:
+              f'launches {n_launched}')
+        if n_launched != 1 or not err <= atol or not symmetric:
             raise AssertionError(f'rbf_covariance_pallas disagrees at {shape}')
         del K
 
@@ -360,10 +373,10 @@ def check_fused(device):
 
     for b, n in ((2, 1024), (B, N)):
         K = spd_device(b, n, device, seed=n)
-        before = fused_blocked_cholesky.launches
+        before = launched('fused_blocked_cholesky')
         L, minvs = fused_blocked_cholesky(K)
         torch.cuda.synchronize()
-        launched = fused_blocked_cholesky.launches - before
+        n_launched = launched('fused_blocked_cholesky') - before
         L.tril_()
         Lp, _ = fused_blocked_cholesky_plain(K)
         err_plain = (L - Lp).abs().max().item()
@@ -380,8 +393,8 @@ def check_fused(device):
         print(f'fused_blocked_cholesky B={b} N={n} block={blk}: '
               f'|L-L64|/max|L|={err_ref:.3e} |L-Lplain|/max|L|='
               f'{err_plain / scale:.3e} max|Lkk Mk - I|={resid:.3e} '
-              f'launches {launched}')
-        if not (launched == 1 and err_ref < 1e-5
+              f'launches {n_launched}')
+        if not (n_launched == 1 and err_ref < 1e-5
                 and err_plain < 2e-5 * scale and resid < 1e-4):
             raise AssertionError(f'fused kernel disagrees at B={b} N={n}')
         del L, minvs
@@ -415,18 +428,18 @@ def check_incbeta(device):
             forms = sorted({incbeta.form(s[2]) for s in slices})
             for name, fn in plain.items():
                 kernel = getattr(incbeta, name)
-                before = kernel.launches
+                before = launched('incbeta.' + name)
                 got = torch.cat([kernel(*s) for s in slices])
                 torch.cuda.synchronize()
-                launched = kernel.launches - before
+                n_launched = launched('incbeta.' + name) - before
                 rel, ab = incbeta_err(got, fn(a, b, u))
                 tol = INCBETA_TOL[dtype][name]
                 print(f'incbeta.{name} {which} {tuple(a.shape)} {dtype} '
                       f'(form {"/".join(("thread", "warp")[f] for f in forms)}'
                       f'): max rel diff vs plain {rel:.3e} (limit {tol:g}), '
-                      f'max abs diff {ab:.3e}, launches {launched}, '
+                      f'max abs diff {ab:.3e}, launches {n_launched}, '
                       f'finite {torch.isfinite(got).all().item()}')
-                if launched != len(slices) or not rel <= tol:
+                if n_launched != len(slices) or not rel <= tol:
                     raise AssertionError(f'incbeta.{name} disagrees with its '
                                          f'plain version ({which}, {dtype})')
                 if dtype == torch.float64:
@@ -1359,7 +1372,7 @@ def time_model_checking(out, card, kernels, counts, device='cuda'):
         kernel, fn = getattr(incbeta, name), plain[name]
         got, terms, chunks = incbeta.cf_terms(kernel, a, b, u)
         err = incbeta_err(got, fn(a, b, u))[1]
-        before = kernel.launches
+        before = launched(INCBETA_TIMED[name])
         t = time_ms({'kernel': lambda: kernel(a, b, u),
                      'plain': lambda: fn(a, b, u)}, rounds=2)
         t_back = time_ms({'kernel': lambda: kernel(a, b, u)}, reps=10,
@@ -1382,7 +1395,7 @@ def time_model_checking(out, card, kernels, counts, device='cuda'):
                  if form else '') + f'), bound {bnd[0]:.3e} ms ({bnd[1]}, '
               f'{CF_FLOPS} flops a term at {RATE[dtype] / 1e12:g} '
               f'TFLOP/s), max abs diff {err:.3e}; launches in the timing '
-              f'{kernel.launches - before}')
+              f'{launched(INCBETA_TIMED[name]) - before}')
         if dtype == torch.float64 and which == 't':
             kernels.append({
                 'name': INCBETA_TIMED[name], 'route': 'cuda',
@@ -1417,10 +1430,10 @@ def time_model_checking(out, card, kernels, counts, device='cuda'):
             out['variogram'][VARIO_POINTS[0]][0].compute(),
         'variogram compute, 64 points (batched)': lambda:
             out['variogram'][VARIO_POINTS[1]][0].compute()}, rounds=2)
-    before = incbeta.betaincinv.launches
+    before = launched('incbeta.betaincinv')
     gt.hpd(gt.stats.beta, 0.68, GP_N * 0.5 + 1, GP_N * 0.5 + 1,
            device=device)
-    hpd_launches = incbeta.betaincinv.launches - before
+    hpd_launches = launched('incbeta.betaincinv') - before
     print(f'timing [{card}] path 6 calls: ' + ', '.join(
         f'{k} {v:.3f} ms' for k, v in t.items())
         + f'; one hpd launches betaincinv {hpd_launches} times')
@@ -1510,7 +1523,6 @@ def batched_legs(device, data, trunc_y, loglikes):
     """Path 7's calls on ``device``: legs A-G.  Returns their results, each
     leg's time (CUDA events) and peak memory, and K1's launches per leg."""
     import gsum_tpu_torch as gt
-    from gsum_tpu_torch import ops
     from gsum_tpu_torch.parallel import (batched_fit, batched_lml_grid,
                                          batched_posterior_at,
                                          batched_predict,
@@ -1523,9 +1535,9 @@ def batched_legs(device, data, trunc_y, loglikes):
 
     def leg(name, fn):
         torch.cuda.reset_peak_memory_stats()
-        before = ops.chol_inv_block.launches
+        before = launched('chol_inv_block')
         out[name], ms[name] = timed(fn)
-        k1[name] = ops.chol_inv_block.launches - before
+        k1[name] = launched('chol_inv_block') - before
         peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
 
     X1t, y1t = t(X1), t(y1)
@@ -2895,19 +2907,13 @@ def mesh_path(card, device='cuda'):
 
 
 def drive(fn):
-    """Runs ``fn`` once with every kernel's launch count set to 0 just
-    before; returns its result and the counts read just after."""
-    import operator
-
-    from gsum_tpu_torch import ops
-
-    counters = {name: operator.attrgetter(name)(ops) for name in KERNELS}
-    for f in counters.values():
-        f.launches = 0
+    """Runs ``fn`` once; returns its result and each kernel's launches
+    during the call."""
     torch.cuda.synchronize()
+    before = {name: launched(name) for name in KERNELS}
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: f.launches for name, f in counters.items()}
+    return out, {name: launched(name) - n for name, n in before.items()}
 
 
 def profile(label, fn):

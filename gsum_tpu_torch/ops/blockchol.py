@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from .._config import promoted
+from ..profiling import count
 from .chol_inv import (MAX_NB, _cholesky_nan, _tri_inv, chol_inv_block,
                        chol_inv_block_plain)
 
@@ -517,6 +518,9 @@ def blocked_spd_solve_logdet(K, Y, block=128, leaf=32, precision=None,
         factorization and the backward ('high': 3xTF32 on CUDA float32);
         the forward's solves of Y are full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block engine
+
+    Each matrix of K counts once in ``chol.matrices``.
     """
+    count('chol.matrices', K.shape[:-2].numel())
     return _BlockedSpdSolveLogdet.apply(*promoted(K, Y), block, diag,
                                         precision)

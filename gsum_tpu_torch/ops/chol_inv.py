@@ -23,6 +23,7 @@ import functools
 import torch
 
 from .. import _build
+from ..profiling import count
 
 __all__ = ['chol_inv_block', 'chol_inv_block_plain', 'MAX_NB']
 
@@ -96,7 +97,8 @@ def chol_inv_block(A):
     diagonal; ``L @ Minv = I`` per batch element.  A block that is not
     positive definite gives a non-finite or non-positive diagonal in L.
 
-    ``chol_inv_block.launches`` counts the kernel's launches.
+    The counter ``k1.launches`` (``profiling.counters()``) counts the
+    kernel's launches.
     """
     _check(A)
     if A.device.type == 'cpu':
@@ -110,8 +112,5 @@ def chol_inv_block(A):
             err = _entry()(A.data_ptr(), L.data_ptr(), M.data_ptr(), B, nb,
                            stream)
         _build.check(err)
-        chol_inv_block.launches += 1
+        count('k1.launches')
     return L, M
-
-
-chol_inv_block.launches = 0

@@ -26,6 +26,7 @@ import functools
 import torch
 
 from .. import _build
+from ..profiling import count
 from .blockchol import _blocked_factor, _blocked_lower_solve, _logdet_from_chol
 
 __all__ = ['fused_blocked_cholesky', 'fused_blocked_cholesky_plain',
@@ -88,7 +89,8 @@ def fused_blocked_cholesky(K, block=256, chunk=None, tril=False):
     matrix that is not positive definite gives a non-finite or non-positive
     diagonal in its own factor.
 
-    ``fused_blocked_cholesky.launches`` counts the kernel's launches.
+    The counter ``k3.launches`` (``profiling.counters()``) counts the
+    kernel's launches.
     """
     del chunk
     _check(K, block)
@@ -104,13 +106,10 @@ def fused_blocked_cholesky(K, block=256, chunk=None, tril=False):
             err = _entry()(K.data_ptr(), L.data_ptr(), minvs.data_ptr(), B, N,
                            block, stream)
         _build.check(err)
-        fused_blocked_cholesky.launches += 1
+        count('k3.launches')
     if tril:
         L.tril_()
     return L, minvs
-
-
-fused_blocked_cholesky.launches = 0
 
 
 def fused_chol_solve_logdet(K, Y, block=256, chunk=None):

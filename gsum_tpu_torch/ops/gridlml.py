@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .._config import promoted
+from ..profiling import count
 from .smallchol import _flag, batched_small_cholesky, batched_small_tri_inv
 
 __all__ = ['cgp_lml_grid', 'cgp_lml_grid2', 'csp_lml_grid',
@@ -63,7 +64,8 @@ def _safe_factor(Rs, factor=batched_small_cholesky):
     """(ok, factor(Rs_safe)): the flag from a first factorization (no
     graph), then the factorization of Rs with failed members replaced by
     the identity.  ``factor`` returns L, or a tuple whose first entry is
-    L."""
+    L.  Both factorizations count in ``chol.matrices``."""
+    count('chol.matrices', 2 * Rs.shape[0])
     with torch.no_grad():
         L0 = factor(Rs)
     ok = _flag(L0[0] if isinstance(L0, tuple) else L0)

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from .. import _build
+from ..profiling import count
 
 __all__ = ['betainc', 'betaincinv', 'cf_terms', 'form', 'WARP_MAX']
 
@@ -70,7 +71,7 @@ def _entry(name, dtype):
     return fn
 
 
-def _launch(fn, name, a, b, x, terms=None, chunks=None):
+def _launch(name, a, b, x, terms=None, chunks=None):
     out = torch.empty_like(x)
     if x.numel():
         with torch.cuda.device(x.device):
@@ -81,39 +82,37 @@ def _launch(fn, name, a, b, x, terms=None, chunks=None):
                   for t in (terms, chunks)),
                 x.numel(), form(x), stream)
         _build.check(err)
-        fn.launches += 1
+        count(f'p1.{name}.launches')
     return out
 
 
 def betainc(a, b, x):
     R"""``I_x(a, b)`` elementwise, by XLA's algorithm.
 
-    ``betainc.launches`` counts the kernel's launches.
+    The counter ``p1.betainc.launches`` (``profiling.counters()``) counts
+    the kernel's launches.
     """
     _check(a, b, x)
     if x.device.type == 'cpu':
         from ..stats._special import betainc_plain
 
         return betainc_plain(a, b, x)
-    return _launch(betainc, 'betainc', a, b, x)
+    return _launch('betainc', a, b, x)
 
 
 def betaincinv(a, b, p):
     R"""The x with ``I_x(a, b) = p``, elementwise, by the JAX package's
     bracketed Newton iteration.
 
-    ``betaincinv.launches`` counts the kernel's launches.
+    The counter ``p1.betaincinv.launches`` (``profiling.counters()``)
+    counts the kernel's launches.
     """
     _check(a, b, p)
     if p.device.type == 'cpu':
         from ..stats._special import betaincinv_plain
 
         return betaincinv_plain(a, b, p)
-    return _launch(betaincinv, 'betaincinv', a, b, p)
-
-
-betainc.launches = 0
-betaincinv.launches = 0
+    return _launch('betaincinv', a, b, p)
 
 
 def cf_terms(fn, a, b, x):
@@ -127,4 +126,4 @@ def cf_terms(fn, a, b, x):
     _check(a, b, x)
     terms = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     chunks = torch.zeros_like(terms)
-    return _launch(fn, fn.__name__, a, b, x, terms, chunks), terms, chunks
+    return _launch(fn.__name__, a, b, x, terms, chunks), terms, chunks

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from .. import _build
+from ..profiling import count
 
 __all__ = ['rbf_covariance_pallas', 'rbf_covariance_pallas_plain']
 
@@ -96,7 +97,8 @@ def rbf_covariance_pallas(X, length_scale, amplitude=1.0, noise=0.0, tile=256):
     -------
     (..., N, N) in X's dtype.
 
-    ``rbf_covariance_pallas.launches`` counts the kernel's launches.
+    The counter ``k2.launches`` (``profiling.counters()``) counts the
+    kernel's launches.
     """
     del tile
     _check(X)
@@ -112,8 +114,5 @@ def rbf_covariance_pallas(X, length_scale, amplitude=1.0, noise=0.0, tile=256):
             err = _entry(X.dtype)(Xb.data_ptr(), K.data_ptr(), Xb.shape[0], N,
                                   d, inv_ls, amplitude, noise, stream)
         _build.check(err)
-        rbf_covariance_pallas.launches += 1
+        count('k2.launches')
     return K.reshape(X.shape[:-1] + (N,))
-
-
-rbf_covariance_pallas.launches = 0

@@ -30,6 +30,7 @@ import warnings
 import torch
 
 from ._config import as_input
+from .profiling import span
 
 __all__ = ['scipy_lbfgsb', 'jit_lbfgs_bounded', 'fixed_lbfgs_bounded',
            'fixed_lbfgs_bounded_batched', 'ConvergenceWarning']
@@ -128,6 +129,10 @@ class _Lbfgs:
     steepest descent where that is no descent direction, the ``_ZSTEP``
     trust cap, one wide Armijo line search over ``ls_steps`` geometric
     trial steps, and a move only where it improves.
+
+    Spans (``profiling.span``): ``gsum.lbfgs.step`` around each iteration,
+    ``gsum.lbfgs.line_search`` around its wide trial evaluation and
+    ``gsum.lbfgs.gradient`` around every value and gradient.
     """
 
     def __init__(self, zfun_b, Z0, history, ls_steps):
@@ -144,7 +149,7 @@ class _Lbfgs:
 
     def value_and_grad(self, Z):
         Z = Z.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with span('gsum.lbfgs.gradient'), torch.enable_grad():
             F = self.zfun_b(Z)
             if F.requires_grad:
                 (G,) = torch.autograd.grad(F.sum(), Z, allow_unused=True)
@@ -174,6 +179,10 @@ class _Lbfgs:
         return r
 
     def step(self):
+        with span('gsum.lbfgs.step'):
+            self._step()
+
+    def _step(self):
         Z, F, G = self.Z, self.F, self.G
         B, P = Z.shape
         D = -self._two_loop(G)
@@ -190,7 +199,7 @@ class _Lbfgs:
 
         # one wide line search: every trial of every problem, no graph kept
         Zt = Z[None] + ts_eff[:, :, None] * D[None]          # (L, B, P)
-        with torch.no_grad():
+        with span('gsum.lbfgs.line_search'), torch.no_grad():
             Ft = self.zfun_b(Zt.reshape(-1, P)).reshape(self.ls_steps, B)
         ok = (Ft <= F[None] + 1e-4 * ts_eff * gd[None]) & torch.isfinite(Ft)
         any_ok = ok.any(0)

@@ -37,6 +37,7 @@ from ..linalg import cholesky
 from ..models import ConjugateGaussianProcess
 from ..ops.gridlml import cgp_lml_grid, cgp_lml_grid2, csp_lml_grid2
 from ..optimize import fixed_lbfgs_bounded_batched
+from ..profiling import count, span
 from .mesh import _axis_devices, shard_batch
 
 __all__ = ['batched_fit', 'batched_predict', 'batched_posterior_at',
@@ -316,62 +317,66 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     Returns
     -------
     BatchedPosterior with leading batch dimension B
+
+    The whole call is the span ``gsum.fit`` (``profiling.span``).
     """
-    if precision not in ('f64', 'f32', 'mixed'):
-        raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
-    X = as_input(X, device=_first_device(mesh))
-    y_batch = as_input(y_batch, device=X.device)
-    bounds = np.asarray(kernel.bounds, dtype=float)
-    f64 = dict(dtype=torch.float64, device=X.device)
-    lower = torch.as_tensor(bounds[:, 0], **f64)
-    upper = torch.as_tensor(bounds[:, 1], **f64)
-    c0, V0 = np.atleast_1d(center), np.atleast_2d(disp)
-    if precision == 'mixed':
+    with span('gsum.fit'):
+        if precision not in ('f64', 'f32', 'mixed'):
+            raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
+        X = as_input(X, device=_first_device(mesh))
+        y_batch = as_input(y_batch, device=X.device)
+        bounds = np.asarray(kernel.bounds, dtype=float)
+        f64 = dict(dtype=torch.float64, device=X.device)
+        lower = torch.as_tensor(bounds[:, 0], **f64)
+        upper = torch.as_tensor(bounds[:, 1], **f64)
+        c0, V0 = np.atleast_1d(center), np.atleast_2d(disp)
+        if precision == 'mixed':
+            if mesh is not None:
+                raise ValueError("precision='mixed' is single-device only "
+                                 '(shard the f32 sweep and polish '
+                                 'separately)')
+            post32 = batched_fit(kernel, X.to(torch.float32),
+                                 y_batch.to(torch.float32), center, disp, df,
+                                 scale, nugget, maxiter, theta0, None,
+                                 n_restarts, seed, chunk, basis, engine,
+                                 ls_steps, precision='f32',
+                                 mxu_precision=mxu_precision)
+            X64 = torch.atleast_2d(X.to(torch.float64))
+            y64 = y_batch.to(torch.float64)
+            if y64.ndim == 2:
+                y64 = y64[:, :, None]
+            t0 = post32.theta.to(torch.float64)
+            return _batched_fit_wide(
+                kernel.clone(), X64, y64, _resolve_basis(basis, X64), t0[:1],
+                lower, upper, c0, V0, df, scale, nugget, polish_iters, chunk,
+                engine, ls_steps, t0_per_fit=t0)
+        if precision == 'f32':
+            X, y_batch = X.to(torch.float32), y_batch.to(torch.float32)
+
+        X = torch.atleast_2d(X)
+        if y_batch.ndim == 2:
+            y_batch = y_batch[:, :, None]
+        basis = _resolve_basis(basis, X)
+
+        theta0 = torch.as_tensor(
+            np.asarray(kernel.theta if theta0 is None else theta0), **f64)
+        if n_restarts > 0:
+            if not np.all(np.isfinite(bounds)):
+                raise ValueError('n_restarts > 0 requires finite bounds')
+            starts = _restart_starts(theta0, lower, upper, n_restarts, seed)
+        else:
+            starts = theta0[None]
         if mesh is not None:
-            raise ValueError("precision='mixed' is single-device only "
-                             "(shard the f32 sweep and polish separately)")
-        post32 = batched_fit(kernel, X.to(torch.float32),
-                             y_batch.to(torch.float32), center, disp, df,
-                             scale, nugget, maxiter, theta0, None,
-                             n_restarts, seed, chunk, basis, engine,
-                             ls_steps, precision='f32',
-                             mxu_precision=mxu_precision)
-        X64 = torch.atleast_2d(X.to(torch.float64))
-        y64 = y_batch.to(torch.float64)
-        if y64.ndim == 2:
-            y64 = y64[:, :, None]
-        t0 = post32.theta.to(torch.float64)
-        return _batched_fit_wide(
-            kernel.clone(), X64, y64, _resolve_basis(basis, X64), t0[:1],
-            lower, upper, c0, V0, df, scale, nugget, polish_iters, chunk,
-            engine, ls_steps, t0_per_fit=t0)
-    if precision == 'f32':
-        X, y_batch = X.to(torch.float32), y_batch.to(torch.float32)
-
-    X = torch.atleast_2d(X)
-    if y_batch.ndim == 2:
-        y_batch = y_batch[:, :, None]
-    basis = _resolve_basis(basis, X)
-
-    theta0 = torch.as_tensor(
-        np.asarray(kernel.theta if theta0 is None else theta0), **f64)
-    if n_restarts > 0:
-        if not np.all(np.isfinite(bounds)):
-            raise ValueError('n_restarts > 0 requires finite bounds')
-        starts = _restart_starts(theta0, lower, upper, n_restarts, seed)
-    else:
-        starts = theta0[None]
-    if mesh is not None:
-        frozen = kernel.clone()
-        return _over_batch(
-            mesh, 'batched_fit', lambda dev, ys: _fit_one(
-                frozen, X.to(dev), ys, basis.to(dev), starts.to(dev),
-                lower.to(dev), upper.to(dev), c0, V0, df, scale, nugget,
-                maxiter), y_batch)
-    return _batched_fit_wide(kernel.clone(), X, y_batch, basis, starts,
-                             lower, upper, c0, V0, df, scale, nugget, maxiter,
-                             chunk, engine, ls_steps,
-                             mxu_precision=mxu_precision)
+            frozen = kernel.clone()
+            return _over_batch(
+                mesh, 'batched_fit', lambda dev, ys: _fit_one(
+                    frozen, X.to(dev), ys, basis.to(dev), starts.to(dev),
+                    lower.to(dev), upper.to(dev), c0, V0, df, scale, nugget,
+                    maxiter), y_batch)
+        return _batched_fit_wide(kernel.clone(), X, y_batch, basis, starts,
+                                 lower, upper, c0, V0, df, scale, nugget,
+                                 maxiter, chunk, engine, ls_steps,
+                                 mxu_precision=mxu_precision)
 
 
 def _fit_one(frozen, X, Ys, basis, starts, lower, upper, c0, V0, df0,
@@ -432,7 +437,9 @@ def _posterior(frozen, thetas, X, Ys, basis, c0, V0, df0, scale0, nugget):
     ``torch.linalg`` Cholesky in the data's dtype (NaN where it fails) and
     the closed-form updates of ``conjugate``, vmapped.  The updates run in
     float64 for f32 data too (JAX promotes them where they meet its f64
-    priors; torch multiplies no f32 by f64)."""
+    priors; torch multiplies no f32 by f64).  Each θ row counts one
+    factorization in ``chol.matrices``."""
+    count('chol.matrices', thetas.shape[0])
     N = X.shape[0]
     eye = torch.eye(N, dtype=X.dtype, device=X.device)
     wide = result_dtype(X.dtype)
@@ -509,6 +516,7 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
     T0_all = T0_all.to(torch.float64)
 
     total = Ys_all.shape[0]
+    count('fit.rows', total)
     step = total if chunk is None else chunk
     outs = [run_chunk(Ys_all[i:i + step], T0_all[i:i + step])
             for i in range(0, total, step)]
@@ -569,34 +577,38 @@ def truncation_lml_grid(kernel, X, y, orders, ratios, thetas, ref=1,
     Returns
     -------
     (T, R) tensor: log p(y | θ_t, ratio_r)
+
+    The whole call is the span ``gsum.grid`` (``profiling.span``).
     """
-    if process not in ('gp', 'tp'):
-        raise ValueError("process must be 'gp' or 'tp'")
-    grid2 = cgp_lml_grid2 if process == 'gp' else csp_lml_grid2
+    with span('gsum.grid'):
+        if process not in ('gp', 'tp'):
+            raise ValueError("process must be 'gp' or 'tp'")
+        grid2 = cgp_lml_grid2 if process == 'gp' else csp_lml_grid2
 
-    X = torch.atleast_2d(as_input(X))
-    y = as_input(y, device=X.device)
-    N = X.shape[0]
-    orders = np.asarray(orders)
-    mask = ~np.isin(orders, excluded)
-    orders_in = orders[mask]
-    n_in = len(orders_in)
+        X = torch.atleast_2d(as_input(X))
+        y = as_input(y, device=X.device)
+        N = X.shape[0]
+        orders = np.asarray(orders)
+        mask = ~np.isin(orders, excluded)
+        orders_in = orders[mask]
+        n_in = len(orders_in)
 
-    ratios = _ratio_rows(ratios, y, N)
-    refv = as_input(ref, device=y.device).to(y.dtype).broadcast_to((N,))
-    thetas = as_input(thetas, device=X.device)
+        ratios = _ratio_rows(ratios, y, N)
+        refv = as_input(ref, device=y.device).to(y.dtype).broadcast_to((N,))
+        thetas = as_input(thetas, device=X.device)
+        count('grid.thetas', thetas.shape[0])
 
-    coeffs = _coefficients(y, orders, mask, ratios, refv)          # (R, N, m)
-    Rs = _covariances(kernel.clone(), thetas, X, nugget)
-    basis = torch.ones((N, 1), dtype=X.dtype, device=X.device)
-    lml = grid2(Rs, coeffs, basis, np.atleast_1d(center),
-                np.atleast_2d(disp), df, scale)                     # (T, R)
+        coeffs = _coefficients(y, orders, mask, ratios, refv)      # (R, N, m)
+        Rs = _covariances(kernel.clone(), thetas, X, nugget)
+        basis = torch.ones((N, 1), dtype=X.dtype, device=X.device)
+        lml = grid2(Rs, coeffs, basis, np.atleast_1d(center),
+                    np.atleast_2d(disp), df, scale)                 # (T, R)
 
-    # change-of-variables determinant (reference models.py:1505-1506)
-    det = (n_in * torch.sum(torch.log(torch.abs(refv)))
-           + float(np.sum(orders_in))
-           * torch.sum(torch.log(torch.abs(ratios)), -1))           # (R,)
-    return lml - det[None, :]
+        # change-of-variables determinant (reference models.py:1505-1506)
+        det = (n_in * torch.sum(torch.log(torch.abs(refv)))
+               + float(np.sum(orders_in))
+               * torch.sum(torch.log(torch.abs(ratios)), -1))       # (R,)
+        return lml - det[None, :]
 
 
 def pointwise_evidence_grid(y, orders, ratios, ref=1, df=1, scale=1,

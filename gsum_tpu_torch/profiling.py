@@ -1,30 +1,79 @@
-R"""Tracing, timing and FLOP accounting (counterpart of
-``gsum_tpu/profiling.py``).
+R"""Tracing, counting, timing and FLOP accounting (counterpart of
+``gsum_tpu/profiling.py``), and the port's one registry of spans and
+counters.
 
-- :func:`trace` — a ``torch.profiler`` window over device execution, written
-  as a Chrome trace (``chrome://tracing``, Perfetto) into ``log_dir``.
-- :func:`flops_fit` / :func:`flops_lml` — analytic FLOP counts of the hot
-  paths, for achieved FLOP/s from a time (copied from the JAX package).
+- :func:`span` — a named span of the program (``gsum.<layer>.<phase>``).
+  It enters ``torch.profiler.record_function`` only while a torch profiler
+  is running, so that it lands in the same trace as the CUDA runtime calls
+  and kernels, on the same clock; otherwise it costs one flag test.
+- :func:`count`, :func:`counters`, :func:`reset_counters` — host counters
+  of quantities the host already knows (shapes, batch sizes, loop trips,
+  kernel launches).  Always on; they never read a device value.
+- :func:`trace` — a ``torch.profiler`` window over device execution,
+  written as a Chrome trace (``chrome://tracing``, Perfetto) into
+  ``log_dir``; it carries the program's ``gsum.*`` spans.
+- :func:`flops_lml` — the analytic FLOP count of one log-marginal
+  likelihood, for achieved FLOP/s from a time (copied from the JAX
+  package).
 - :func:`time_fn` — best-of time per call: CUDA events for work on the card,
   host clocks only for CPU tensors.
+
+Spans: ``gsum.fit`` (``parallel.batched_fit``), ``gsum.lbfgs.step``,
+``gsum.lbfgs.line_search`` and ``gsum.lbfgs.gradient``
+(``optimize._Lbfgs``), ``gsum.grid`` (``parallel.truncation_lml_grid``).
+Counters: ``chol.matrices`` (covariances factored on the fit and grid
+paths), ``fit.rows``, ``grid.thetas``, and the kernels' launches
+``k1.launches``, ``k2.launches``, ``k3.launches``, ``p1.betainc.launches``,
+``p1.betaincinv.launches``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
 
 import torch
 
-__all__ = ['trace', 'flops_lml', 'flops_fit', 'time_fn']
+__all__ = ['span', 'count', 'counters', 'reset_counters', 'trace',
+           'flops_lml', 'time_fn']
+
+_OFF = contextlib.nullcontext()
+_COUNTS = collections.Counter()
+
+
+def span(name):
+    """A context manager that marks the enclosed host work as the span
+    ``name`` in a running torch profiler's trace; a shared no-op when no
+    profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name, n=1):
+    """Adds ``n`` (a host int) to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counters():
+    """A copy of every counter (a ``collections.Counter``: a name never
+    counted reads 0)."""
+    return collections.Counter(_COUNTS)
+
+
+def reset_counters():
+    """Sets every counter to 0."""
+    _COUNTS.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir, activities=None, **kwargs):
     """Profiles the enclosed work with ``torch.profiler`` (CPU, and CUDA
-    where a card is visible) and writes ``<log_dir>/trace.json``.  Yields
-    the profiler, whose ``key_averages()`` gives device time per kernel;
-    ``kwargs`` go to ``torch.profiler.profile``."""
+    where a card is visible) and writes ``<log_dir>/trace.json``, the
+    program's ``gsum.*`` spans included.  Yields the profiler, whose
+    ``key_averages()`` gives device time per kernel; ``kwargs`` go to
+    ``torch.profiler.profile``."""
     from torch.profiler import ProfilerActivity, profile
 
     if activities is None:
@@ -44,12 +93,6 @@ def flops_lml(n, n_curves=1, n_params=1):
     chol = n ** 3 / 3.0
     solves = 2.0 * n * n * (n_curves + 2)
     return cov + chol + solves
-
-
-def flops_fit(n, n_curves=1, n_params=1, lml_evals=30):
-    """FLOPs of a MAP fit: optimizer iterations × (lml + gradient ≈ 3×
-    lml)."""
-    return lml_evals * 4.0 * flops_lml(n, n_curves, n_params)
 
 
 def _leaves(x):

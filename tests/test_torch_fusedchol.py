@@ -17,6 +17,7 @@ from gsum_tpu.ops.fusedchol import fused_blocked_cholesky as jax_fused
 from gsum_tpu.ops.fusedchol import fused_chol_solve_logdet as jax_solve
 from gsum_tpu_torch.ops import (batched_chol_logpdf, fused_blocked_cholesky,
                                 fused_chol_solve_logdet)
+from gsum_tpu_torch.profiling import counters
 
 from _port import spd, to_numpy
 from test_torch_batched import inputs
@@ -49,10 +50,10 @@ def test_fused_blocked_cholesky_matches_pallas_interpret(case, jax_factor,
     B=1 case factors the batch's first matrix alone: each matrix's factor
     depends on it only."""
     L_jax, M_jax = jax_factor
-    before = fused_blocked_cholesky.launches
+    before = counters()['k3.launches']
     L, minvs = to_numpy(fused_blocked_cholesky(
         torch.from_numpy(case[0][:batch]), block=BLOCK, chunk=2))
-    assert fused_blocked_cholesky.launches == before   # no kernel on the CPU
+    assert counters()['k3.launches'] == before   # no kernel on the CPU
     assert L.shape == (batch, N, N) and L.dtype == np.float32
     assert minvs.shape == (batch, N // BLOCK, BLOCK, BLOCK)
     np.testing.assert_allclose(np.tril(L), L_jax[:batch],

@@ -25,6 +25,7 @@ from gsum_tpu_torch.ops import (batched_blocked_cholesky, batched_chol_logpdf,
                                 fused_blocked_cholesky_plain, rbf_covariance,
                                 rbf_covariance_pallas,
                                 rbf_covariance_pallas_plain)
+from gsum_tpu_torch.profiling import counters
 
 pytestmark = pytest.mark.gpu
 
@@ -52,11 +53,11 @@ def test_kernel_matches_plain(cuda, B, nb):
     L within 1e-5·max|L| of the f64 factor and 2e-5·max|L| of the plain
     version; L·M = I to 1e-4; zeros above both diagonals."""
     K = _blocks(B, nb, cuda)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     L, M = chol_inv_block(K)
     Lp, _ = chol_inv_block_plain(K)
     torch.cuda.synchronize()
-    assert chol_inv_block.launches == before + 1
+    assert counters()['k1.launches'] == before + 1
     Lref = torch.linalg.cholesky(K.double())
     scale = Lref.abs().max().item()
     assert (L.double() - Lref).abs().max().item() < 1e-5 * scale
@@ -96,10 +97,10 @@ def test_pipeline_goes_through_the_kernel(cuda):
     rng = np.random.RandomState(0)
     X = torch.tensor(rng.rand(2, 1024, 2), dtype=torch.float32, device=cuda)
     y = torch.tensor(rng.randn(2, 1024, 3), dtype=torch.float32, device=cuda)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     out = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2)
     torch.cuda.synchronize()
-    assert chol_inv_block.launches == before + 8
+    assert counters()['k1.launches'] == before + 8
     plain = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, diag='recursive')
     assert torch.isfinite(out).all()
     assert ((out - plain).abs() / plain.abs()).max().item() < 1e-4
@@ -125,10 +126,10 @@ def test_rbf_cov_kernel_matches_plain(cuda, shape, dtype, atol):
     tile's transpose from the same registers."""
     X = torch.tensor(np.random.RandomState(0).rand(*shape), dtype=dtype,
                      device=cuda)
-    before = rbf_covariance_pallas.launches
+    before = counters()['k2.launches']
     K = rbf_covariance_pallas(X, 0.25, 1.0, 1e-2)
     torch.cuda.synchronize()
-    assert rbf_covariance_pallas.launches == before + 1
+    assert counters()['k2.launches'] == before + 1
     assert K.shape == shape[:-1] + (shape[-2],) and K.dtype == dtype
     plain = rbf_covariance_pallas_plain(X, 0.25, 1.0, 1e-2)
     assert (K - plain).abs().max().item() < atol
@@ -142,10 +143,10 @@ def test_fused_kernel_matches_plain(cuda, B, N, block):
     2e-5·max|L| of the plain version; each diagonal block times its inverse
     is I to 1e-4."""
     K = _blocks(B, N, cuda)
-    before = fused_blocked_cholesky.launches
+    before = counters()['k3.launches']
     L, minvs = fused_blocked_cholesky(K, block=block)
     torch.cuda.synchronize()
-    assert fused_blocked_cholesky.launches == before + 1
+    assert counters()['k3.launches'] == before + 1
     L = torch.tril(L)
     Lp, _ = fused_blocked_cholesky_plain(K, block)
     Lref = torch.linalg.cholesky(K.double())
@@ -210,12 +211,12 @@ def test_fused_pipeline_goes_through_one_launch(cuda):
     rng = np.random.RandomState(0)
     X = torch.tensor(rng.rand(2, 1024, 2), dtype=torch.float32, device=cuda)
     y = torch.tensor(rng.randn(2, 1024, 3), dtype=torch.float32, device=cuda)
-    fused_before = fused_blocked_cholesky.launches
-    diag_before = chol_inv_block.launches
+    fused_before = counters()['k3.launches']
+    diag_before = counters()['k1.launches']
     out = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='fused')
     torch.cuda.synchronize()
-    assert fused_blocked_cholesky.launches == fused_before + 1
-    assert chol_inv_block.launches == diag_before
+    assert counters()['k3.launches'] == fused_before + 1
+    assert counters()['k1.launches'] == diag_before
     blocked = batched_chol_logpdf(X, y, 0.25, 1.0, 1e-2, method='blocked')
     assert torch.isfinite(out).all()
     assert ((out - blocked).abs() / blocked.abs()).max().item() < 1e-4
@@ -249,7 +250,7 @@ def _route_grads(route, K, Y, G, g):
     backward."""
     K = K.detach().requires_grad_(True)
     Y = Y.detach().requires_grad_(True)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     if route == 'blocked_spd_solve_logdet':
         x, logdet, ok = blocked_spd_solve_logdet(K, Y, block=128)
         assert ok.all()
@@ -262,10 +263,10 @@ def _route_grads(route, K, Y, G, g):
         logdet = 2 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     loss = (x * G.to(x.dtype)).sum() + (logdet * g.to(x.dtype)).sum()
     torch.cuda.synchronize()
-    fwd = chol_inv_block.launches - before
+    fwd = counters()['k1.launches'] - before
     Kbar, Ybar = torch.autograd.grad(loss, (K, Y))
     torch.cuda.synchronize()
-    bwd = chol_inv_block.launches - before - fwd
+    bwd = counters()['k1.launches'] - before - fwd
     return 0.5 * (Kbar + Kbar.mT), Ybar, fwd, bwd
 
 
@@ -448,11 +449,12 @@ def test_incbeta_kernel_matches_plain(cuda, name, dtype):
     kernel = getattr(incbeta, name)
     for which, slices in cases.items():
         a, b, u = (torch.cat(v) for v in zip(*slices))
-        before = kernel.launches
+        before = counters()[f'p1.{name}.launches']
         got = torch.cat([kernel(*args) for args in slices])
         want = getattr(_special, name + '_plain')(a, b, u)
         torch.cuda.synchronize()
-        assert kernel.launches == before + len(slices), which
+        assert counters()[f'p1.{name}.launches'] == before + len(slices), \
+            which
         assert torch.equal(torch.isnan(got), torch.isnan(want)), which
         ok = ~torch.isnan(want)
         rel = ((got[ok] - want[ok]).abs()
@@ -624,24 +626,24 @@ def test_blocked_grid_lml_launches_k1_in_forwards_only(cuda):
     y = torch.tensor(rng.randn(512, 1), dtype=torch.float32, device=cuda)
     basis = torch.ones(512, 1, dtype=torch.float32, device=cuda)
     R.requires_grad_(True)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     lml = cgp_lml_grid(R, y, basis, 0.0, 0, 3.0, 1.0, engine='blocked')
     torch.cuda.synchronize()
-    assert chol_inv_block.launches == before + 4
+    assert counters()['k1.launches'] == before + 4
     lml.sum().backward()
     torch.cuda.synchronize()
-    assert chol_inv_block.launches == before + 4
+    assert counters()['k1.launches'] == before + 4
     assert torch.isfinite(R.grad).all()
 
     Y = np.sin(3 * X.T + rng.rand(3, 1) * 6.28) + 0.1 * rng.randn(3, 512)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     post = batched_fit(gt.RBF(0.5, (1e-2, 1e2)),
                        torch.tensor(X, dtype=torch.float32, device=cuda),
                        torch.tensor(Y, dtype=torch.float32, device=cuda),
                        df=3, scale=1, nugget=1e-2, maxiter=3, chunk=2,
                        ls_steps=4, engine='blocked')
     torch.cuda.synchronize()
-    assert chol_inv_block.launches - before == 2 * (1 + 2 * 3) * 4
+    assert counters()['k1.launches'] - before == 2 * (1 + 2 * 3) * 4
     assert torch.isfinite(post.lml).all()
 
 
@@ -754,10 +756,10 @@ def test_hier_engine_through_the_kernel(cuda):
     A = np.random.RandomState(8).randn(2, 512, 512)
     K = torch.tensor(A @ np.swapaxes(A, -1, -2) / 512 + np.eye(512),
                      dtype=torch.float32, device=cuda)
-    before = chol_inv_block.launches
+    before = counters()['k1.launches']
     L = batched_blocked_cholesky(K, block=256, diag='hier')
     torch.cuda.synchronize()
-    assert chol_inv_block.launches - before == 4
+    assert counters()['k1.launches'] - before == 4
     Lref = torch.linalg.cholesky(K.double())
     assert (L.double() - Lref).abs().max().item() < \
         1e-5 * Lref.abs().max().item()
