@@ -78,7 +78,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      path 5's partial sums at N=256, against the truncation models' lml;
      F, ``pointwise_evidence_grid`` at 1500 ratios on path 6's data,
      against path 6's loop; G, ``batched_posterior_at`` and
-     ``batched_predict``; each leg's time (CUDA events) and peak memory,
+     ``batched_predict``; H, ``batched_fit`` at ``nn350.fits``' widths,
+     f64 and f32, N=350, 'auto' against 'scan' (``engine_table``, whose
+     full run alone times every engine at N = 256 to 640); each leg's
+     time (CUDA events) and peak memory,
      and a subset of each leg against the CPU, with limits from the
      condition numbers;
    - model checking and derivative observations (path 8): A, path 5's
@@ -1457,7 +1460,17 @@ TGRID_PRIORS = {'gp': dict(center=0, disp=0, df=3, scale=1),
                 'tp': dict(center=0, disp=0, df=5, scale=1)}
 TGRID_POINTS = ((0, 0), (37, 11), (70, 50), (99, 79))
 POST_B, POST_NEW = 128, 32                                          # leg G
-ENGINE_NS, ENGINE_B, ENGINE_MAXITER = (192, 640, 1024, 2048), 8, 3  # leg H
+# leg H: nn350.fits' widths (179 fits a call, chunk 128, ls_steps 10,
+# maxiter 20, 5 curves a fit) at each N of the scan engine's former range
+ENGINE_NS, ENGINE_B, ENGINE_M = (256, 350, 512, 640), 179, 5
+ENGINE_CHUNK, ENGINE_LS, ENGINE_MAXITER, ENGINE_ROUNDS = 128, 10, 20, 5
+ENGINE_SCALES = (0.12, 0.16, 0.2, 0.25, 0.3, 0.35, 0.42, 0.5)
+ENGINE_NUGGET = {torch.float64: 1e-10, torch.float32: WIDE_NUGGET}
+ENGINE_ENGINES = ('auto', 'grid', 'scan', 'blocked', 'scalar')
+# the largest |lml - scan's lml| a datum a fit may read: f64, the lml_gap
+# limit of nn350.fits (read up to 8.0e-4 at block 128, N=256); f32 at
+# nugget 1e-2 read up to 2.3e-6
+ENGINE_GAP = {torch.float64: 3e-3, torch.float32: 1e-4}
 CPU_A, CPU_C, CPU_E, CPU_G = 8, 16, 4, 4     # the CPU's subset of each leg
 WELL_NUGGET = 1e-6     # leg A's θ again, card vs CPU, better conditioned
 
@@ -1600,40 +1613,234 @@ def batched_legs(device, data, trunc_y, loglikes):
     return out, ms, peak, k1
 
 
-def engine_table(card, device):
-    """Leg H: the fit engines' times at the N where ``_auto_fit_engine``
-    switches (the JAX package's thresholds, measured on a TPU): B=8 f32
-    fits of the leg-3 recipe, maxiter 3, ls_steps 10, one chunk, each
-    engine at each N (the blocked one above 512 only); the choice of
-    'auto' beside them."""
+def engine_data(n, device, seed=1):
+    """(n, 1) lattice points (i + 1)/n and (ENGINE_B, n, ENGINE_M) f64
+    coefficient curves on them: draws of unit RBF processes whose length
+    scales are dealt from ENGINE_SCALES in turn (``nn350.fits``' design),
+    from a seeded generator on the card."""
+    f64 = dict(dtype=torch.float64, device=device)
+    X = torch.arange(1, n + 1, **f64)[:, None] / n
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Y = torch.empty(ENGINE_B, n, ENGINE_M, **f64)
+    eye = torch.eye(n, **f64)
+    for i, ls in enumerate(ENGINE_SCALES):
+        L = torch.linalg.cholesky(
+            torch.exp(-0.5 * (X - X.T) ** 2 / ls ** 2) + 1e-9 * eye)
+        rows = range(i, ENGINE_B, len(ENGINE_SCALES))
+        Y[rows.start::rows.step] = L @ torch.randn(
+            len(rows), n, ENGINE_M, generator=gen, **f64)
+    return X, Y
+
+
+def alternating_ms(fns, rounds=None):
+    """Host-clock ms per call of each function in ``fns`` (each call ends
+    in a synchronize), ``rounds`` samples taken in alternating order after
+    one warm-up call each: {name: (median, samples, warm-up result, peak
+    bytes of the warm-up)}."""
+    rounds = ENGINE_ROUNDS if rounds is None else rounds
+    names, out = list(fns), {}
+    for name in names:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fns[name]()
+        torch.cuda.synchronize()
+        out[name] = [res, torch.cuda.max_memory_allocated(), []]
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            out[name][2].append((time.perf_counter() - t0) * 1e3)
+    return {name: (statistics.median(v[2]), v[2], v[0], v[1])
+            for name, v in out.items()}
+
+
+def engine_table(card=None, device='cuda', ns=ENGINE_NS,
+                 engines=ENGINE_ENGINES, rounds=ENGINE_ROUNDS, full=True):
+    """Leg H: the fit engines on the card at ``nn350.fits``' widths, the
+    measurement behind the card's rows of ``_auto_fit_engine``.
+
+    At each N of ``ns``, in f64 (the cell's nugget 1e-10) and f32 (nugget
+    WIDE_NUGGET), ``batched_fit`` of ENGINE_B fits of ENGINE_M curves with
+    each engine of ``engines`` ('auto' is the table's choice, in f64 with
+    its own column width; 'grid' is the unrolled engine): chunk 128 (the
+    last chunk 51 fits), ls_steps 10 (a line search of 1,280 matrices),
+    maxiter 20; medians of ``rounds`` alternating runs, each engine's peak
+    memory, and its fits' lml against the scan engine's.  With ``full``,
+    also the objective alone per engine and blocked width
+    (``objective_table``), and at N=350 the 'mixed' route at nugget 1e-10
+    (``mixed_row``).  ``engines`` must hold 'scan'.
+
+    Checks: no engine gives a non-finite lml, and no fit's lml lies
+    farther from the scan engine's than ENGINE_GAP a datum.  Returns the
+    failed checks; alone it raises on them: ``python3 -c "import
+    chip_smoke; chip_smoke.engine_table()"``.  The full run holds the card
+    about a quarter of an hour; ``main`` runs N=350, 'auto' and 'scan'."""
     from gsum_tpu_torch.parallel import batched_fit
     from gsum_tpu_torch.parallel.batched import _auto_fit_engine
 
-    rng = np.random.RandomState(1)
-    for n in ENGINE_NS:
-        X = torch.tensor(np.linspace(0, 1, n)[:, None], dtype=torch.float32,
-                         device=device)
-        Y = torch.tensor(np.sin(3.0 * np.linspace(0, 1, n)[None]
-                                + rng.rand(ENGINE_B, 1) * 6.28)
-                         + 0.1 * rng.randn(ENGINE_B, n), dtype=torch.float32,
-                         device=device)
-        row = {}
-        for engine in ('grid', 'scan', 'scalar', 'blocked'):
-            if engine == 'blocked' and n <= 512:
-                continue
-            post, t_ms = timed(lambda: batched_fit(
-                fit_kernel(), X, Y, df=3, scale=1, nugget=WIDE_NUGGET,
-                maxiter=ENGINE_MAXITER, chunk=ENGINE_B, engine=engine))
-            if not torch.isfinite(post.lml).all():
-                raise AssertionError(f'leg H: {engine} at N={n} gave a '
-                                     f'non-finite lml')
-            row[engine] = t_ms
-        auto = {'unrolled': 'grid', 'scan': 'scan', 'blocked': 'blocked',
-                None: 'scalar'}[_auto_fit_engine(torch.float32, n, 'cuda')]
-        print(f'timing [{card}] path 7 leg H (fit engines, B={ENGINE_B} '
-              f'f32, maxiter {ENGINE_MAXITER}) N={n}: ' + ', '.join(
-                  f'{k} {v:.1f} ms' for k, v in row.items())
-              + f"; 'auto' picks {auto}, fastest {min(row, key=row.get)}")
+    alone = card is None
+    card = card_line() if alone else card
+    names = {'unrolled': 'grid', 'scan': 'scan', 'blocked': 'blocked',
+             None: 'scalar'}
+    problems = []
+    for n in ns:
+        X64, Y64 = engine_data(n, device)
+        for dtype in (torch.float64, torch.float32):
+            X, Y = X64.to(dtype), Y64.to(dtype)
+            nugget = ENGINE_NUGGET[dtype]
+            label = {torch.float64: 'f64', torch.float32: 'f32'}[dtype]
+            fns = {e: (lambda e=e: batched_fit(
+                fit_kernel(), X, Y, df=3, scale=1, nugget=nugget,
+                maxiter=ENGINE_MAXITER, chunk=ENGINE_CHUNK,
+                ls_steps=ENGINE_LS, engine=e, precision=label))
+                for e in engines}
+            res = alternating_ms(fns, rounds)
+            where = f'leg H {label} N={n}'
+            problems += engine_checks(res, n, ENGINE_GAP[dtype], where)
+            auto = names[_auto_fit_engine(dtype, n, 'cuda')]
+            fastest = min(res, key=lambda e: res[e][0])
+            print(f'timing [{card}] path 7 leg H (batched_fit, {ENGINE_B} '
+                  f'fits {label} N={n}, chunk {ENGINE_CHUNK}, ls_steps '
+                  f'{ENGINE_LS}, maxiter {ENGINE_MAXITER}, medians of '
+                  f'{rounds} alternating runs): ' + engine_line(res)
+                  + f"; 'auto' picks {auto}, fastest {fastest}")
+            if full:
+                objective_table(card, X, Y, label, nugget)
+            if dtype == torch.float64:
+                fits64 = res['scan'][2]
+        if full and n == 350:
+            problems += mixed_row(card, X64, Y64, fits64, rounds)
+    if alone and problems:
+        raise AssertionError('leg H: ' + '; '.join(problems))
+    return problems
+
+
+def mixed_row(card, X, Y, fits64, rounds=ENGINE_ROUNDS):
+    """Leg H's 'mixed' route (an f32 sweep, then four f64 polish
+    iterations from its optimum) at nugget 1e-10 on f64 curves, 'auto'
+    against 'scan': time, peak, non-finite lml, the gap to scan; how many
+    of the f32 sweep's fits end with a non-finite lml; and how far each
+    engine's fits fall below the f64 fits ``fits64`` (the scan engine's),
+    in nats a datum.  Below f32's resolution the sweep cannot factor at
+    the start, so the polish alone moves θ and neither engine's fits
+    converge: they are held to finite lml only, not to one another."""
+    from gsum_tpu_torch.parallel import batched_fit
+
+    n = X.shape[0]
+    kw = dict(df=3, scale=1, nugget=ENGINE_NUGGET[torch.float64],
+              maxiter=ENGINE_MAXITER, chunk=ENGINE_CHUNK, ls_steps=ENGINE_LS)
+    res = alternating_ms({e: (lambda e=e: batched_fit(
+        fit_kernel(), X, Y, engine=e, precision='mixed', **kw))
+        for e in ('auto', 'scan')}, rounds)
+    parts = []
+    for e, (_, _, post, _) in res.items():
+        sweep = batched_fit(fit_kernel(), X, Y, engine=e, precision='f32',
+                            **kw)
+        below = (fits64.lml - post.lml) / (n * ENGINE_M)
+        parts.append(f'{e}: f32 sweep non-finite lml '
+                     f'{int((~torch.isfinite(sweep.lml)).sum())} of '
+                     f'{ENGINE_B}; below the f64 fits median '
+                     f'{below.median().item():.2e}, largest '
+                     f'{below.max().item():.2e} a datum')
+    print(f"timing [{card}] path 7 leg H (batched_fit, precision 'mixed': "
+          f"f32 sweep, f64 polish, nugget 1e-10, {ENGINE_B} fits N={n}, "
+          f"medians of {rounds} alternating runs): " + engine_line(res)
+          + '; ' + '; '.join(parts))
+    return engine_checks(res, n, None, f'leg H mixed N={n}')
+
+
+def engine_line(res):
+    """One leg-H engine row: time, runs, peak memory, non-finite lml and
+    the gap to scan's lml, per engine."""
+    lml_scan = res['scan'][2].lml
+    parts = []
+    for e, (ms, samples, post, peak) in res.items():
+        runs = ', '.join(f'{s:.1f}' for s in samples)
+        parts.append(
+            f'{e} {ms:.1f} ms (runs {runs}; peak {peak / 1e9:.2f} GB; '
+            f'non-finite lml {int((~torch.isfinite(post.lml)).sum())}; '
+            f'against scan {lml_gap(post.lml, lml_scan)})')
+    return '; '.join(parts)
+
+
+def engine_checks(res, n, limit, where):
+    """Leg H's failed checks of one row: non-finite lml from any engine,
+    and, unless ``limit`` is None, any fit's |lml - scan's lml| a datum
+    above ``limit``."""
+    lml_scan = res['scan'][2].lml
+    problems = []
+    for e, (_, _, post, _) in res.items():
+        bad = int((~torch.isfinite(post.lml)).sum())
+        if bad:
+            problems.append(f'{where}: {e} gave {bad} non-finite lml')
+        if limit is None:
+            continue
+        both = torch.isfinite(post.lml) & torch.isfinite(lml_scan)
+        gap = ((post.lml - lml_scan)[both].abs().max().item()
+               / (n * ENGINE_M) if both.any() else 0.0)
+        if gap > limit:
+            problems.append(f'{where}: {e} lml {gap:.2e} a datum from '
+                            f'scan (limit {limit:g})')
+    return problems
+
+
+def objective_table(card, X, Y, label, nugget):
+    """Leg H's objective alone: one line search (ENGINE_LS × ENGINE_CHUNK
+    matrices, no grad) and one value and gradient (ENGINE_CHUNK matrices,
+    the gradient into the covariances) at length scales spread over
+    (0.05, 1), per engine and blocked column width."""
+    from gsum_tpu_torch.ops import cgp_lml_grid
+
+    n, dev, dtype = X.shape[0], X.device, X.dtype
+    G = ENGINE_LS * ENGINE_CHUNK
+    ls = torch.exp(torch.linspace(math.log(0.05), 0.0, G, dtype=dtype,
+                                  device=dev))
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    Rs = torch.exp(-0.5 * (X - X.T)[None] ** 2 / ls[:, None, None] ** 2) \
+        + nugget * eye
+    Ys = Y[:ENGINE_CHUNK].repeat(ENGINE_LS, 1, 1)
+    basis = torch.ones(n, 1, dtype=dtype, device=dev)
+    whole = -(-n // 32) * 32
+    routes = {'unrolled': dict(engine='unrolled'),
+              'scan': dict(engine='scan'),
+              'blocked 64': dict(engine='blocked', block=64),
+              'blocked 128': dict(engine='blocked', block=128),
+              f'blocked {whole} (one block)': dict(engine='blocked',
+                                                   block=whole)}
+    rows = {}
+    for route, kw in routes.items():
+        def search(kw=kw):
+            with torch.no_grad():
+                return cgp_lml_grid(Rs, Ys, basis, 0.0, 0, 3.0, 1.0, **kw)
+
+        def gradient(kw=kw):
+            R = Rs[::ENGINE_LS].clone().requires_grad_(True)
+            lml = cgp_lml_grid(R, Ys[:ENGINE_CHUNK], basis, 0.0, 0, 3.0,
+                               1.0, **kw)
+            lml.sum().backward()
+            return lml.detach()
+        rows[route] = alternating_ms({'search': search,
+                                      'gradient': gradient})
+    ref = rows['scan']['search'][2]
+    print(f'timing [{card}] path 7 leg H (objective, {label} N={n}: one '
+          f'line search of {G} matrices, no grad / one value and gradient '
+          f'of {ENGINE_CHUNK}; medians of {ENGINE_ROUNDS}; peak memory '
+          f'with the inputs): ' + '; '.join(
+              f"{route} {r['search'][0]:.2f} / {r['gradient'][0]:.2f} ms "
+              f"(peak {r['search'][3] / 1e9:.2f} / "
+              f"{r['gradient'][3] / 1e9:.2f} GB; against scan "
+              f"{lml_gap(r['search'][2], ref)})"
+              for route, r in rows.items()))
+
+
+def lml_gap(lml, ref):
+    """The largest |lml - ref| where both are finite, and the count of
+    entries finite in one and not the other."""
+    a, b = torch.isfinite(lml), torch.isfinite(ref)
+    both = a & b
+    gap = (lml[both] - ref[both]).abs().max().item() if both.any() else 0.0
+    return f'max |lml gap| {gap:.3e}, finite in one only {int((a ^ b).sum())}'
 
 
 def trunc_kernel():
@@ -1846,7 +2053,10 @@ def batched_path(card, loglikes, device='cuda'):
     check(err <= lim, f'leg G: card vs CPU {err:.3e}')
     print(f'path 7 CPU side: {time.perf_counter() - t0:.1f} s')
 
-    engine_table(card, device)
+    for what in engine_table(card, device, ns=(350,),
+                             engines=('auto', 'scan'), rounds=2,
+                             full=False):
+        check(False, what)
     profile(f'leg A objective, one line search ({FIT_CHUNK * 10} θ, '
             f'N={FIT_N}, f64, grid engine) [{card}]',
             lambda: batched_lml_grid(fit_kernel(), torch.tensor(

@@ -400,10 +400,16 @@ def _auto_fit_engine(dtype, N, backend):
 
     The JAX package's thresholds, measured on a TPU v5e
     (benchmarks/fit_engines_tpu.py), with ``backend == 'cuda'`` (the
-    tensors lie on the card) in place of its ``'tpu'``:
+    tensors lie on the card) in place of its ``'tpu'``, except where the
+    card has its own measurement:
 
     - N <= 192: 'unrolled';
-    - N <= 640: 'scan';
+    - N <= 640: 'blocked' on the card, else 'scan'.  On an NVIDIA H100
+      the blocked engine was the fastest of the four in f64 and in f32 at
+      N = 256, 350, 512 and 640, at 1.5–2.8 times the scan engine's rate
+      (179 fits a call, chunk 128, ls_steps 10, maxiter 20:
+      ``chip_smoke.engine_table``; its readings are in PERF.md).  In f64
+      the route factors in column blocks of ``_F64_FIT_BLOCK``;
     - N <= 1024: the scalar lml;
     - 1024 < N <= 8192, f32 on the card: 'blocked';
     - otherwise (and all f64): the scalar lml.
@@ -411,12 +417,19 @@ def _auto_fit_engine(dtype, N, backend):
     if N <= 192:
         return 'unrolled'
     if N <= 640:
-        return 'scan'
+        return 'blocked' if backend == 'cuda' else 'scan'
     if N <= 1024:
         return None
     if N <= 8192 and dtype == torch.float32 and backend == 'cuda':
         return 'blocked'
     return None
+
+
+# The blocked fit route's column width in f64 (the default 128 elsewhere).
+# Block 64 gives the scan engine's forward bit for bit on the H100; at
+# nugget 1e-10 block 128 left the fits 2.7 times as far from a plain f64
+# reference, for 3% less time a call (PERF.md).
+_F64_FIT_BLOCK = 64
 
 
 def _scalar_chunk_cap(N, ls_steps, dtype, total_memory):
@@ -468,8 +481,11 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
     best start per data set is kept."""
     B, N, m = y_batch.shape
     dtype = X.dtype
+    block = None
     if engine == 'auto':
         grid_engine = _auto_fit_engine(dtype, N, X.device.type)
+        if grid_engine == 'blocked' and dtype == torch.float64:
+            block = _F64_FIT_BLOCK
     else:
         grid_engine = _engine(engine)
     if grid_engine is None:
@@ -491,7 +507,7 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
                     Th, Ys_full)
             return -cgp_lml_grid(_covariances(frozen, Th, X, nugget),
                                  Ys_full, basis, c0, V0, df0, scale0,
-                                 engine=grid_engine,
+                                 engine=grid_engine, block=block,
                                  mxu_precision=mxu_precision)
 
         topt, fmin = fixed_lbfgs_bounded_batched(fun_b, T0, lower, upper,

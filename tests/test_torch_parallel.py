@@ -232,16 +232,26 @@ def test_batched_predict_on_carried_posterior(jax_posterior, student, mode):
 
 
 def test_auto_fit_engine_table():
-    """JAX's table, with the card ('cuda') where JAX reads a TPU."""
-    cases = [(n, dt) for n in (128, 192, 193, 520, 640, 641, 768, 1024,
-                               1025, 4096, 8192, 8193)
+    """On the CPU, JAX's table (the parity tests run there).  On the card
+    ('cuda', where JAX reads a TPU), JAX's table outside 192 < N <= 640,
+    and inside it the H100's own row: the blocked engine in f64 and f32,
+    the fastest of the four engines at N = 256, 350, 512 and 640 at the
+    fit's widths (``chip_smoke.engine_table``; the readings are in
+    PERF.md), where JAX's TPU table has the scan engine.  In f64 that
+    route factors in column blocks of 64, the scan engine's own width."""
+    cases = [(n, dt) for n in (128, 192, 193, 256, 350, 512, 520, 640, 641,
+                               768, 1024, 1025, 4096, 8192, 8193)
              for dt in ('float32', 'float64')]
     for n, dt in cases:
-        for jb_backend, tb_backend in (('tpu', 'cuda'), ('cpu', 'cpu')):
-            want = jb._auto_fit_engine(getattr(jnp, dt), n, jb_backend)
-            got = tb._auto_fit_engine(getattr(torch, dt), n, tb_backend)
-            assert got == want, (n, dt, tb_backend)
+        cpu = jb._auto_fit_engine(getattr(jnp, dt), n, 'cpu')
+        assert tb._auto_fit_engine(getattr(torch, dt), n, 'cpu') == cpu
+        card = ('blocked' if 192 < n <= 640
+                else jb._auto_fit_engine(getattr(jnp, dt), n, 'tpu'))
+        assert tb._auto_fit_engine(getattr(torch, dt), n, 'cuda') == card, \
+            (n, dt)
+    assert tb._auto_fit_engine(torch.float64, 350, 'cpu') == 'scan'
     assert tb._auto_fit_engine(torch.float32, 4096, 'cuda') == 'blocked'
+    assert tb._F64_FIT_BLOCK == 64
 
 
 def test_scalar_chunk_cap():
