@@ -80,7 +80,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      against path 6's loop; G, ``batched_posterior_at`` and
      ``batched_predict``; H, ``batched_fit`` at ``nn350.fits``' widths,
      f64 and f32, N=350, 'auto' against 'scan' (``engine_table``, whose
-     full run alone times every engine at N = 256 to 640); each leg's
+     full run alone times every engine at N = 256 to 640), and 'auto' with
+     each chunk's step eager, eager with its priors copied from the host
+     at every objective call, and replayed as a CUDA graph, bit for bit
+     (``graph_table``, whose full run alone also times maxiter 2 to 6);
+     each leg's
      time (CUDA events) and peak memory,
      and a subset of each leg against the CPU, with limits from the
      condition numbers;
@@ -149,6 +153,7 @@ last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it fails at once.
 JAX is not imported.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -1785,6 +1790,98 @@ def engine_checks(res, n, limit, where):
     return problems
 
 
+GRAPH_N, GRAPH_MAXITERS = 350, (2, 3, 4, 5, 6)
+GRAPH_FIELDS = ('theta', 'lml', 'scale_sq', 'center', 'df')
+
+
+@contextlib.contextmanager
+def fit_route(route):
+    """``batched_fit``'s chunks on one route: 'synced', each objective call
+    building its priors from the host as before the CUDA graph (a copy
+    from pageable memory, which waits for the device's queue; the leg's
+    priors, center 0 and disp 0); 'eager', the priors built once a call;
+    'graphed', one captured step replayed whatever ``maxiter``."""
+    from gsum_tpu_torch.ops import gridlml
+    from gsum_tpu_torch.parallel import batched
+
+    saved = batched._graphed, batched._cgp_lml_grid
+
+    def synced(Rs, y, basis, prior, df0, *args, **kw):
+        return gridlml._cgp_lml_grid(
+            Rs, y, basis, gridlml._prior(0.0, 0.0, df0, Rs.device), df0,
+            *args, **kw)
+
+    batched._graphed = lambda *a: route == 'graphed'
+    if route == 'synced':
+        batched._cgp_lml_grid = synced
+    try:
+        yield
+    finally:
+        batched._graphed, batched._cgp_lml_grid = saved
+
+
+def graph_table(card=None, device='cuda', rounds=ENGINE_ROUNDS, full=True):
+    """Leg H's CUDA-graph row: ``batched_fit`` of ENGINE_B fits at N =
+    GRAPH_N on 'auto' (blocked, block 64 in f64; K1 diagonals in f32), at
+    leg H's chunk, ls_steps and maxiter, on the three routes of
+    :func:`fit_route`: ms a call (medians of ``rounds`` alternating
+    runs), peak memory, and each route's fits against the eager ones bit
+    for bit (θ, lml, τ², η, ν).  With ``full``, also the eager and graphed
+    routes at each maxiter of GRAPH_MAXITERS, the measurement behind
+    ``parallel.batched._GRAPH_MIN_ITER``.
+
+    Checks: every route's fits equal the eager ones bit for bit.  Returns
+    the failed checks; alone it raises on them: ``python3 -c "import
+    chip_smoke; chip_smoke.graph_table()"``."""
+    from gsum_tpu_torch.parallel import batched_fit
+
+    alone = card is None
+    card = card_line() if alone else card
+    problems = []
+    X64, Y64 = engine_data(GRAPH_N, device)
+    for dtype in (torch.float64, torch.float32):
+        X, Y = X64.to(dtype), Y64.to(dtype)
+        label = {torch.float64: 'f64', torch.float32: 'f32'}[dtype]
+
+        def fit(route, maxiter=ENGINE_MAXITER):
+            with fit_route(route):
+                return batched_fit(
+                    fit_kernel(), X, Y, df=3, scale=1,
+                    nugget=ENGINE_NUGGET[dtype], maxiter=maxiter,
+                    chunk=ENGINE_CHUNK, ls_steps=ENGINE_LS, precision=label)
+
+        res = alternating_ms({r: (lambda r=r: fit(r))
+                              for r in ('synced', 'eager', 'graphed')},
+                             rounds)
+        eager = res['eager'][2]
+        parts = []
+        for route, (ms, samples, post, peak) in res.items():
+            same = [f for f in GRAPH_FIELDS
+                    if torch.equal(getattr(post, f), getattr(eager, f))]
+            if len(same) < len(GRAPH_FIELDS):
+                problems.append(f'leg H graph {label}: {route} differs from '
+                                f'eager in {set(GRAPH_FIELDS) - set(same)}')
+            parts.append(f"{route} {ms:.1f} ms (runs "
+                         f"{', '.join(f'{x:.1f}' for x in samples)}; peak "
+                         f"{peak / 1e9:.2f} GB; bit for bit with eager: "
+                         f"{len(same) == len(GRAPH_FIELDS)})")
+        print(f'timing [{card}] path 7 leg H graph ({ENGINE_B} fits {label} '
+              f'N={GRAPH_N}, auto, chunk {ENGINE_CHUNK}, ls_steps '
+              f'{ENGINE_LS}, maxiter {ENGINE_MAXITER}, medians of {rounds} '
+              f'alternating runs): ' + '; '.join(parts))
+        if not full:
+            continue
+        for maxiter in GRAPH_MAXITERS:
+            res = alternating_ms({r: (lambda r=r: fit(r, maxiter))
+                                  for r in ('eager', 'graphed')}, rounds)
+            print(f'timing [{card}] path 7 leg H graph ({label}, maxiter '
+                  f'{maxiter}): ' + '; '.join(
+                      f'{r} {ms:.1f} ms' for r, (ms, *_) in res.items()))
+    if alone and problems:
+        raise AssertionError('; '.join(problems))
+    return problems
+
+
 def objective_table(card, X, Y, label, nugget):
     """Leg H's objective alone: one line search (ENGINE_LS × ENGINE_CHUNK
     matrices, no grad) and one value and gradient (ENGINE_CHUNK matrices,
@@ -2056,6 +2153,8 @@ def batched_path(card, loglikes, device='cuda'):
     for what in engine_table(card, device, ns=(350,),
                              engines=('auto', 'scan'), rounds=2,
                              full=False):
+        check(False, what)
+    for what in graph_table(card, device, rounds=2, full=False):
         check(False, what)
     profile(f'leg A objective, one line search ({FIT_CHUNK * 10} θ, '
             f'N={FIT_N}, f64, grid engine) [{card}]',

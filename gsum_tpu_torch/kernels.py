@@ -296,6 +296,19 @@ class Kernel:
             type(self).__name__,
             ', '.join(map('{0:.3g}'.format, np.exp(self.theta))))
 
+    def _fixed(self, name, value, device):
+        """The fixed hyperparameter ``name`` (``value``) as a tensor on
+        ``device`` (``_config.device_constant``), built once for its value
+        and kept on the kernel: a value of several entries is copied from
+        the host, which waits for the device's queue, and a CUDA graph
+        (``optimize._Lbfgs.run``) can hold no copy."""
+        a = np.asarray(value, dtype=float)
+        kept = self.__dict__.setdefault('_fixed_on_device', {})
+        key = (name, device, default_dtype())
+        if key not in kept or not np.array_equal(kept[key][0], a):
+            kept[key] = a.copy(), device_constant(a, device)
+        return kept[key][1]
+
     def _resolve(self, theta):
         """Hyperparameter values: fixed ones as f64 tensors, free ones the
         exp of their slice of ``theta``."""
@@ -304,7 +317,8 @@ class Kernel:
         params = self.get_params()
         for hp in self.hyperparameters:
             if hp.fixed:
-                vals[hp.name] = device_constant(params[hp.name], theta.device)
+                vals[hp.name] = self._fixed(hp.name, params[hp.name],
+                                            theta.device)
             else:
                 n = hp.n_elements
                 if n > 1:

@@ -97,8 +97,9 @@ def chol_inv_block(A):
     diagonal; ``L @ Minv = I`` per batch element.  A block that is not
     positive definite gives a non-finite or non-positive diagonal in L.
 
-    The counter ``k1.launches`` (``profiling.counters()``) counts the
-    kernel's launches.
+    Counters (``profiling.counters()``): ``k1.launches`` counts the
+    kernel's launches, ``k1.matrices.<nb>`` the blocks of width nb they
+    factored.
     """
     _check(A)
     if A.device.type == 'cpu':
@@ -113,4 +114,5 @@ def chol_inv_block(A):
                            stream)
         _build.check(err)
         count('k1.launches')
+        count(f'k1.matrices.{nb}', B)
     return L, M

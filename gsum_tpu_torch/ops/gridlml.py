@@ -17,6 +17,7 @@ stay finite.  The first factorization only sets the flag and runs under
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,12 +33,15 @@ _LOG_2PI = math.log(2 * math.pi)
 
 
 def batched_cho_solve(L, B, leaf=16):
-    """Solves ``(L Lᵀ) X = B`` batched (``torch.cholesky_solve``), L and B
-    promoted to one dtype.  The JAX package solves through the triangular
+    """Solves ``(L Lᵀ) X = B`` batched, L and B promoted to one dtype, by
+    two triangular solves: on the card ``torch.cholesky_solve`` takes
+    MAGMA's batched potrs, which a CUDA graph cannot capture (the capture
+    aborts the process).  The JAX package solves through the triangular
     inverse and two products, a TPU workaround; ``leaf`` is accepted for
     its signature and ignored."""
     L, B = promoted(L, B)
-    return torch.cholesky_solve(B, L)
+    w = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, w, upper=True)
 
 
 def _resolve_mxu_precision(p):
@@ -51,13 +55,27 @@ def _resolve_mxu_precision(p):
                      % (p,))
 
 
-def _priors(center0, disp0, df0, like):
-    center0 = torch.atleast_1d(torch.as_tensor(
-        np.asarray(center0, dtype=float), dtype=like.dtype,
-        device=like.device))
+class _Prior(NamedTuple):
+    """The concrete priors of the grid functions as float64 tensors on the
+    device, built by :func:`_prior`; a fit builds them once a call, as a
+    copy from the host waits for the device's queue, and a CUDA graph can
+    hold none."""
+    center0: torch.Tensor               # (p,)
+    disp0_inv: torch.Tensor | None      # V₀⁻¹, (p, p); None where V₀ = 0
+    df0_inf: bool
+
+
+def _prior(center0, disp0, df0, device):
+    """:class:`_Prior` of the concrete ``center0``, ``disp0`` and ``df0`` on
+    ``device``; V₀⁻¹ is inverted exactly on the host (p is tiny)."""
+    f64 = dict(dtype=torch.float64, device=device)
     disp0_np = np.atleast_2d(np.asarray(disp0, dtype=float))
-    return (center0, disp0_np, bool(np.all(disp0_np == 0)),
-            bool(np.isinf(df0)))
+    return _Prior(
+        torch.atleast_1d(torch.as_tensor(np.asarray(center0, dtype=float),
+                                         **f64)),
+        None if np.all(disp0_np == 0)
+        else torch.as_tensor(np.linalg.inv(disp0_np), **f64),
+        bool(np.isinf(df0)))
 
 
 def _safe_factor(Rs, factor=batched_small_cholesky):
@@ -107,6 +125,14 @@ def cgp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16,
     -------
     (G,) log-marginal likelihoods
     """
+    return _cgp_lml_grid(Rs, y, basis, _prior(center0, disp0, df0, Rs.device),
+                         df0, scale0, leaf, engine, block, mxu_precision)
+
+
+def _cgp_lml_grid(Rs, y, basis, prior, df0, scale0, leaf=16,
+                  engine='unrolled', block=None, mxu_precision=None):
+    """:func:`cgp_lml_grid` with its priors given as a :class:`_Prior`: no
+    copy from the host, so that a fit's objective can be captured."""
     if y.ndim == 1:
         y = y[:, None]
     if engine == 'scan' and not Rs.dtype == y.dtype == basis.dtype:
@@ -121,7 +147,8 @@ def cgp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16,
     p = basis.shape[1]
     dtype, dev = Rs.dtype, Rs.device
     per_point_y = y.ndim == 3
-    center0, disp0_np, disp0_zero, df0_inf = _priors(center0, disp0, df0, Rs)
+    center0 = prior.center0.to(dtype)
+    disp0_zero, df0_inf = prior.disp0_inv is None, prior.df0_inf
 
     # right-hand sides of the solves: R⁻¹ y and R⁻¹ B for every grid point
     if per_point_y:
@@ -160,9 +187,7 @@ def cgp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16,
         center = center0.expand(G, p)
     else:
         quad_B = torch.einsum('np,gnq->gpq', basis, invR_B)         # Bᵀ R⁻¹ B
-        # the concrete prior's inverse, exact on the host (p is tiny)
-        disp0_inv = torch.as_tensor(np.linalg.inv(disp0_np), dtype=dtype,
-                                    device=dev)
+        disp0_inv = prior.disp0_inv.to(dtype)
         Mp = disp0_inv[None] + m * quad_B                           # (G, p, p)
         Lm = batched_small_cholesky(Mp, leaf)
         eye_p = torch.eye(p, dtype=dtype, device=dev).expand(G, p, p)
@@ -254,8 +279,9 @@ def cgp_lml_grid2(Rs, Ys, basis, center0, disp0, df0, scale0, leaf=16):
     T, N, _ = Rs.shape
     R, _, m = Ys.shape
     dtype, dev = Rs.dtype, Rs.device
-    center0, _, disp0_zero, df0_inf = _priors(center0, disp0, df0, Rs)
-    if not disp0_zero:
+    prior = _prior(center0, disp0, df0, dev)
+    center0, df0_inf = prior.center0.to(dtype), prior.df0_inf
+    if prior.disp0_inv is not None:
         raise NotImplementedError(
             'cgp_lml_grid2 currently supports the delta-mean prior '
             '(disp0 = 0), which is what the truncation models use')
@@ -303,7 +329,9 @@ def csp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16):
     m = y.shape[1]
     p = basis.shape[1]
     dtype, dev = Rs.dtype, Rs.device
-    center0, disp0_np, disp0_zero, df0_inf = _priors(center0, disp0, df0, Rs)
+    prior = _prior(center0, disp0, df0, dev)
+    center0, df0_inf = prior.center0.to(dtype), prior.df0_inf
+    disp0_zero = prior.disp0_inv is None
 
     ok, L = _safe_factor(Rs)
     yB = torch.cat([y, basis], 1)
@@ -318,8 +346,7 @@ def csp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16):
     # posterior dispersion V (reference models.py:233-278)
     if not disp0_zero:
         quad_B = torch.einsum('np,gnq->gpq', basis, invR_B)
-        disp0_inv = torch.as_tensor(np.linalg.inv(disp0_np), dtype=dtype,
-                                    device=dev)
+        disp0_inv = prior.disp0_inv.to(dtype)
         Lm = batched_small_cholesky(disp0_inv[None] + m * quad_B, leaf)
         eye_p = torch.eye(p, dtype=dtype, device=dev).expand(G, p, p)
         disp = batched_cho_solve(Lm, eye_p, leaf)
@@ -352,8 +379,8 @@ def csp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16):
     log_norm_prior = _log_norm_prior(df0, scale0)
     if not disp0_zero:
         log_norm_post = log_norm_post + 0.5 * (p * _LOG_2PI + logdet_disp)
-        log_norm_prior += 0.5 * float(
-            np.linalg.slogdet(2 * np.pi * disp0_np)[1])
+        log_norm_prior += 0.5 * float(np.linalg.slogdet(
+            2 * np.pi * np.atleast_2d(np.asarray(disp0, dtype=float)))[1])
 
     lml = log_norm_post - log_norm_prior \
         - m / 2. * (N * _LOG_2PI + _logdet(L))
@@ -370,8 +397,9 @@ def csp_lml_grid2(Rs, Ys, basis, center0, disp0, df0, scale0, leaf=16):
     Rs, Ys, basis = promoted(Rs, Ys, basis)
     T, N, _ = Rs.shape
     R, _, m = Ys.shape
-    center0, _, disp0_zero, df0_inf = _priors(center0, disp0, df0, Rs)
-    if not disp0_zero:
+    prior = _prior(center0, disp0, df0, Rs.device)
+    center0, df0_inf = prior.center0.to(Rs.dtype), prior.df0_inf
+    if prior.disp0_inv is not None:
         raise NotImplementedError(
             'csp_lml_grid2 supports the delta-mean prior')
     if df0_inf:

@@ -25,15 +25,17 @@ trial evaluations keep no autograd graph alive.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 
 import torch
 
 from ._config import as_input
-from .profiling import span
+from .profiling import _recorded, count, span
 
 __all__ = ['scipy_lbfgsb', 'jit_lbfgs_bounded', 'fixed_lbfgs_bounded',
-           'fixed_lbfgs_bounded_batched', 'ConvergenceWarning']
+           'fixed_lbfgs_bounded_batched', 'release_graph_memory',
+           'ConvergenceWarning']
 
 
 try:  # sklearn's warning class if present, else a local stand-in
@@ -120,6 +122,41 @@ def _bounds(lower, upper, P, device):
     return lo.broadcast_to((P,)), hi.broadcast_to((P,))
 
 
+@functools.cache
+def _side_stream(device):
+    """The side stream of every capture on the CUDA ``device``, one for the
+    process: the caching allocator keeps its blocks per stream, so a new
+    stream at every capture would keep a step's memory of its own."""
+    return torch.cuda.Stream(device)
+
+
+# device -> the graph captured last there.  Every capture on a device
+# shares one memory pool, which this graph keeps alive between calls, so
+# that the next call's captures allocate nothing.  The allocator frees a
+# pool whose graphs are gone only when an allocation outside a capture
+# fails, so a pool per capture piled up until an allocation inside one
+# failed.  The pool is as large as the largest step captured there.
+_LAST_GRAPH = {}
+
+
+def release_graph_memory():
+    """Returns to the card the memory that the fits' captured steps keep.
+
+    On the card, ``parallel.batched_fit`` replays each chunk's L-BFGS
+    iteration as a CUDA graph.  Every capture on a device shares one
+    memory pool, as large as the largest step captured there (6.8 GB at
+    179 fits of N = 350 in float64), and the pool stays reserved between
+    calls, so that the next call's captures allocate nothing;
+    ``torch.cuda.empty_cache`` cannot return it.  This waits for the
+    card, drops the kept graphs and empties the cache.  The next fit
+    builds a new pool.
+    """
+    for dev in list(_LAST_GRAPH):
+        torch.cuda.synchronize(dev)
+    _LAST_GRAPH.clear()
+    torch.cuda.empty_cache()
+
+
 class _Lbfgs:
     """Lockstep bounded L-BFGS over a batch of independent problems.
 
@@ -130,9 +167,15 @@ class _Lbfgs:
     trust cap, one wide Armijo line search over ``ls_steps`` geometric
     trial steps, and a move only where it improves.
 
-    Spans (``profiling.span``): ``gsum.lbfgs.step`` around each iteration,
-    ``gsum.lbfgs.line_search`` around its wide trial evaluation and
-    ``gsum.lbfgs.gradient`` around every value and gradient.
+    The state (Z, F, G and the history S, Y, rho, m) lives in buffers
+    allocated once, and every iteration writes its new state into them
+    with ``copy_``; so one iteration's body can be captured as a CUDA
+    graph and replayed (:meth:`run`), the same body as the eager step.
+
+    Spans (``profiling.span``): ``gsum.lbfgs.step`` around each iteration
+    (a replay included), ``gsum.lbfgs.line_search`` around its wide trial
+    evaluation and ``gsum.lbfgs.gradient`` around every value and
+    gradient.  Counters: ``lbfgs.steps`` and ``lbfgs.steps_replayed``.
     """
 
     def __init__(self, zfun_b, Z0, history, ls_steps):
@@ -140,12 +183,65 @@ class _Lbfgs:
         B, P = Z0.shape
         dtype, dev = Z0.dtype, Z0.device
         self.ts = 0.5 ** torch.arange(ls_steps, dtype=dtype, device=dev)
-        self.Z = Z0
-        self.F, self.G = self.value_and_grad(Z0)
+        self.Z = Z0.clone()
+        self.F = torch.empty(B, dtype=torch.float64, device=dev)
+        self.G = torch.empty_like(Z0)
         self.S = torch.zeros((history, B, P), dtype=dtype, device=dev)
         self.Y = torch.zeros((history, B, P), dtype=dtype, device=dev)
         self.rho = torch.zeros((history, B), dtype=dtype, device=dev)
         self.m = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    def start(self):
+        """The value and gradient at the start point."""
+        F, G = self.value_and_grad(self.Z)
+        self.F.copy_(F)
+        self.G.copy_(G)
+
+    def run(self, maxiter, graphed=False):
+        """:meth:`start`, then ``maxiter`` iterations.
+
+        ``graphed`` (CUDA tensors, ``maxiter`` >= 1): the start and the
+        first iteration run eagerly on a side stream, which warms up what
+        a capture may not (the allocator's blocks, library handles); one
+        :meth:`step` is captured there as a CUDA graph, into the device's
+        one pool (``_LAST_GRAPH``), and the current stream replays it for
+        the other ``maxiter - 1``.  Every iteration goes through
+        :meth:`step`, and the graph runs its kernels on the same buffers,
+        so the iterates are the eager run's; at each replay the counters
+        take what the capture counted.  The objective must copy nothing
+        from the host and read no device value.
+        """
+        if not graphed:
+            self.start()
+            for _ in range(maxiter):
+                self.step()
+            return
+        dev = self.Z.device
+        main, side = torch.cuda.current_stream(dev), _side_stream(dev)
+        last = _LAST_GRAPH.get(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.start()
+            self.step()
+            graph = torch.cuda.CUDAGraph()
+            with _recorded() as counted:
+                graph.capture_begin(pool=torch.cuda.graph_pool_handle()
+                                    if last is None else last.pool())
+                try:
+                    self.step()
+                finally:
+                    graph.capture_end()
+        _LAST_GRAPH[dev] = graph
+        main.wait_stream(side)
+        for _ in range(maxiter - 1):
+            with span('gsum.lbfgs.step'):
+                graph.replay()
+                for name, n in counted.items():
+                    count(name, n)
+                count('lbfgs.steps_replayed')
+        # the next capture, on whichever stream, reuses this graph's memory
+        # only after its replays
+        side.wait_stream(main)
 
     def value_and_grad(self, Z):
         Z = Z.detach().requires_grad_(True)
@@ -181,6 +277,7 @@ class _Lbfgs:
     def step(self):
         with span('gsum.lbfgs.step'):
             self._step()
+            count('lbfgs.steps')
 
     def _step(self):
         Z, F, G = self.Z, self.F, self.G
@@ -222,14 +319,33 @@ class _Lbfgs:
             rolled = torch.roll(buf, 1, 0)
             rolled = torch.cat([new[None], rolled[1:]], 0)
             shape = (1, B) + (1,) * (buf.ndim - 2)
-            return torch.where(store.reshape(shape), rolled, buf)
+            buf.copy_(torch.where(store.reshape(shape), rolled, buf))
 
-        self.S = push(self.S, s)
-        self.Y = push(self.Y, yv)
-        self.rho = push(self.rho, 1.0 / torch.clamp(curv, min=1e-30))
-        self.m = torch.where(store, torch.clamp(self.m + 1, max=self.h),
-                             self.m)
-        self.Z, self.F, self.G = Z_new, F_new, G_new
+        push(self.S, s)
+        push(self.Y, yv)
+        push(self.rho, 1.0 / torch.clamp(curv, min=1e-30))
+        self.m.copy_(torch.where(store, torch.clamp(self.m + 1, max=self.h),
+                                 self.m))
+        Z.copy_(Z_new)
+        F.copy_(F_new)
+        G.copy_(G_new)
+
+
+def _fixed_lbfgs(fun_b, X0, lower, upper, maxiter=50, history=8,
+                 ls_steps=10, graphed=False):
+    """:func:`fixed_lbfgs_bounded_batched`, with :meth:`_Lbfgs.run`'s
+    ``graphed``."""
+    X0 = as_input(X0)
+    B, P = X0.shape
+    lo, hi = _bounds(lower, upper, P, X0.device)
+
+    def zfun_b(Z):
+        return fun_b(_to_bounded(Z, lo, hi)).to(torch.float64)
+
+    opt = _Lbfgs(zfun_b, _to_unbounded(X0.to(torch.float64), lo, hi),
+                 history, ls_steps)
+    opt.run(maxiter, graphed)
+    return _to_bounded(opt.Z, lo, hi), opt.F
 
 
 def fixed_lbfgs_bounded_batched(fun_b, X0, lower, upper, maxiter=50,
@@ -246,18 +362,7 @@ def fixed_lbfgs_bounded_batched(fun_b, X0, lower, upper, maxiter=50,
 
     Returns ``(X_opt (B, P), f_opt (B,))``, both float64.
     """
-    X0 = as_input(X0)
-    B, P = X0.shape
-    lo, hi = _bounds(lower, upper, P, X0.device)
-
-    def zfun_b(Z):
-        return fun_b(_to_bounded(Z, lo, hi)).to(torch.float64)
-
-    Z0 = _to_unbounded(X0.to(torch.float64), lo, hi)
-    opt = _Lbfgs(zfun_b, Z0, history, ls_steps)
-    for _ in range(maxiter):
-        opt.step()
-    return _to_bounded(opt.Z, lo, hi), opt.F
+    return _fixed_lbfgs(fun_b, X0, lower, upper, maxiter, history, ls_steps)
 
 
 def _rows(fun):
@@ -331,10 +436,11 @@ def jit_lbfgs_bounded(fun, x0, lower, upper, maxiter=200, tol=1e-10):
 
     opt = _Lbfgs(zfun_b, _to_unbounded(x0.to(torch.float64), lo, hi)[None],
                  8, _JIT_LS_STEPS)
+    opt.start()
     for _ in range(maxiter):
         if float(torch.linalg.vector_norm(opt.G)) <= tol:
             break
-        Z_before = opt.Z
+        Z_before = opt.Z.clone()
         opt.step()
         if torch.equal(opt.Z, Z_before):
             break

@@ -9,7 +9,8 @@ computation: the covariance build is ``torch.func.vmap`` of the kernel's
 ``value_fn`` over θ, and factorizations, solves and conjugate updates take
 the batch as a leading dimension (``ops.gridlml``).  A fit is the lockstep
 batched L-BFGS (``optimize.fixed_lbfgs_bounded_batched``) over that wide
-objective.
+objective; on the card each chunk replays its iteration as a CUDA graph
+(:func:`_graphed`).
 
 Inputs given as numpy go to the card (``_config.default_device``), tensors
 stay where they are.  ``mesh=`` (a ``parallel.mesh.Mesh``) splits the batch
@@ -35,8 +36,9 @@ from .. import conjugate as _conj
 from .._config import as_input, result_dtype
 from ..linalg import cholesky
 from ..models import ConjugateGaussianProcess
-from ..ops.gridlml import cgp_lml_grid, cgp_lml_grid2, csp_lml_grid2
-from ..optimize import fixed_lbfgs_bounded_batched
+from ..ops.gridlml import (_cgp_lml_grid, _prior, cgp_lml_grid,
+                           cgp_lml_grid2, csp_lml_grid2)
+from ..optimize import _fixed_lbfgs
 from ..profiling import count, span
 from .mesh import _axis_devices, shard_batch
 
@@ -318,7 +320,10 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     -------
     BatchedPosterior with leading batch dimension B
 
-    The whole call is the span ``gsum.fit`` (``profiling.span``).
+    The whole call is the span ``gsum.fit`` (``profiling.span``).  On the
+    card, each chunk of a grid engine's fit replays its L-BFGS iteration as
+    a CUDA graph (:func:`_graphed`), whose memory pool stays reserved for
+    the next call; ``optimize.release_graph_memory()`` returns it.
     """
     with span('gsum.fit'):
         if precision not in ('f64', 'f32', 'mixed'):
@@ -432,6 +437,24 @@ def _auto_fit_engine(dtype, N, backend):
 _F64_FIT_BLOCK = 64
 
 
+# The fewest iterations with which a chunk's L-BFGS replays its step as a
+# CUDA graph (the start and one eager iteration come first).  On an NVIDIA
+# H100, 179 fits at N = 350 in two chunks: the capture costs about one
+# step, and a replayed step saves about 6 ms on an eager one, so the graph
+# lost at maxiter 2 and 3 and won at 6, in f64 and f32 (PERF.md).
+_GRAPH_MIN_ITER = 5
+
+
+def _graphed(device, grid_engine, maxiter):
+    """Whether each chunk's fixed-trip L-BFGS replays one captured step as a
+    CUDA graph (``optimize._Lbfgs.run``): where the tensors lie on CUDA,
+    the objective is a grid engine's (the library's own, which copies
+    nothing from the host and never syncs; not the vmapped scalar lml) and
+    ``maxiter`` is at least ``_GRAPH_MIN_ITER``."""
+    return (device.type == 'cuda' and grid_engine is not None
+            and maxiter >= _GRAPH_MIN_ITER)
+
+
 def _scalar_chunk_cap(N, ls_steps, dtype, total_memory):
     """Memory-aware chunk bound for the vmapped scalar fit objective.
 
@@ -494,6 +517,9 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
             chunk = min(chunk, _scalar_chunk_cap(
                 N, ls_steps, dtype,
                 torch.cuda.get_device_properties(X.device).total_memory))
+    else:
+        prior = _prior(c0, V0, df0, X.device)
+    graphed = _graphed(X.device, grid_engine, maxiter)
 
     def run_chunk(Ys, T0):
         def fun_b(Thetas):
@@ -505,14 +531,13 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
             if grid_engine is None:
                 return -vmap(lambda th, y2: scalar_lml(th, X, y2, basis))(
                     Th, Ys_full)
-            return -cgp_lml_grid(_covariances(frozen, Th, X, nugget),
-                                 Ys_full, basis, c0, V0, df0, scale0,
-                                 engine=grid_engine, block=block,
-                                 mxu_precision=mxu_precision)
+            return -_cgp_lml_grid(_covariances(frozen, Th, X, nugget),
+                                  Ys_full, basis, prior, df0, scale0,
+                                  engine=grid_engine, block=block,
+                                  mxu_precision=mxu_precision)
 
-        topt, fmin = fixed_lbfgs_bounded_batched(fun_b, T0, lower, upper,
-                                                 maxiter=maxiter,
-                                                 ls_steps=ls_steps)
+        topt, fmin = _fixed_lbfgs(fun_b, T0, lower, upper, maxiter=maxiter,
+                                  ls_steps=ls_steps, graphed=graphed)
         with torch.no_grad():
             parts = _posterior(frozen, topt.to(dtype), X, Ys, basis, c0, V0,
                                df0, scale0, nugget)

@@ -22,9 +22,13 @@ Spans: ``gsum.fit`` (``parallel.batched_fit``), ``gsum.lbfgs.step``,
 ``gsum.lbfgs.line_search`` and ``gsum.lbfgs.gradient``
 (``optimize._Lbfgs``), ``gsum.grid`` (``parallel.truncation_lml_grid``).
 Counters: ``chol.matrices`` (covariances factored on the fit and grid
-paths), ``fit.rows``, ``grid.thetas``, and the kernels' launches
+paths), ``fit.rows``, ``grid.thetas``, ``lbfgs.steps`` (the bounded
+L-BFGS's iterations, eager or replayed) and ``lbfgs.steps_replayed`` (those
+replayed from a CUDA graph, ``optimize._Lbfgs``), and the kernels' launches
 ``k1.launches``, ``k2.launches``, ``k3.launches``, ``p1.betainc.launches``,
-``p1.betaincinv.launches``.
+``p1.betaincinv.launches``, with ``k1.matrices.<nb>`` (the blocks of width
+nb that K1 factored).  A replayed graph counts at every replay what
+its capture counted (:func:`_recorded`).
 """
 from __future__ import annotations
 
@@ -65,6 +69,19 @@ def counters():
 def reset_counters():
     """Sets every counter to 0."""
     _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def _recorded():
+    """Sends the counts made inside to the ``collections.Counter`` it
+    yields, not to the registry: what a CUDA graph's capture counts, added
+    again at each replay, as nothing runs at the capture."""
+    global _COUNTS
+    kept, _COUNTS = _COUNTS, collections.Counter()
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = kept
 
 
 @contextlib.contextmanager

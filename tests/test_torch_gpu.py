@@ -1035,3 +1035,204 @@ def test_a_mesh_on_a_missing_card_raises(cuda):
         Mesh([f'cuda:{count}'], ('model',))
     with pytest.raises(RuntimeError, match='CUDA card'):
         make_mesh(devices=['cuda:0', f'cuda:{count}'])
+
+
+def _fit_curves(cuda, n, B, dtype, seed=5):
+    """(n, 1) points on (0, 1] and (B, n, 3) curves: draws of RBF processes
+    at length scales 0.15–0.5, as ``nn350.fits``' data."""
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.arange(1, n + 1, dtype=torch.float64)[:, None] / n
+    eye = torch.eye(n, dtype=torch.float64)
+    Y = torch.empty(B, n, 3, dtype=torch.float64)
+    for b in range(B):
+        ls = 0.15 + 0.35 * b / max(B - 1, 1)
+        L = torch.linalg.cholesky(
+            torch.exp(-0.5 * (X - X.T) ** 2 / ls ** 2) + 1e-8 * eye)
+        Y[b] = L @ torch.randn(n, 3, generator=gen, dtype=torch.float64)
+    return X.to(cuda, dtype), Y.to(cuda, dtype)
+
+
+def _fit_both_ways(cuda, monkeypatch, n, B, dtype, engine, chunk, nugget,
+                   maxiter, ls_steps=6):
+    """``batched_fit`` eager (the rule ``_graphed`` patched to False) and
+    graphed: {route: (posterior, change of every counter)}."""
+    from gsum_tpu_torch.parallel import batched, batched_fit
+
+    X, Y = _fit_curves(cuda, n, B, dtype)
+    rule = batched._graphed
+    out = {}
+    for route in ('eager', 'graphed'):
+        monkeypatch.setattr(batched, '_graphed', rule if route == 'graphed'
+                            else lambda *a: False)
+        before = counters()
+        post = batched_fit(gt.RBF(0.5, (1e-2, 1e2)), X, Y, df=3, scale=1,
+                           nugget=nugget, maxiter=maxiter, ls_steps=ls_steps,
+                           chunk=chunk, engine=engine,
+                           precision={torch.float64: 'f64',
+                                      torch.float32: 'f32'}[dtype])
+        torch.cuda.synchronize()
+        after = counters()
+        out[route] = post, {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+    assert rule(X.device, batched._auto_fit_engine(dtype, n, 'cuda')
+                if engine == 'auto' else batched._engine(engine), maxiter)
+    return out
+
+
+@pytest.mark.parametrize('n,B,dtype,engine,chunk,nugget', [
+    (350, 10, torch.float64, 'auto', 6, 1e-10),    # blocked, block 64
+    (512, 4, torch.float32, 'auto', 4, 1e-2),      # blocked, K1 diagonals
+    (128, 6, torch.float64, 'grid', 4, 1e-8),      # unrolled
+    (256, 6, torch.float64, 'scan', 4, 1e-8),
+])
+def test_graphed_fit_equals_the_eager_fit_bit_for_bit(cuda, monkeypatch, n,
+                                                      B, dtype, engine,
+                                                      chunk, nugget):
+    """Each chunk's start and first iteration eager, the other iterations
+    one captured step replayed: the same kernels on the same buffers, so θ,
+    lml, τ², η and ν are the eager fit's bit for bit, and every counter
+    but ``lbfgs.steps_replayed`` changes as much (the capture's counts are
+    added at each replay; K1's launches included)."""
+    maxiter = 5
+    out = _fit_both_ways(cuda, monkeypatch, n, B, dtype, engine, chunk,
+                         nugget, maxiter)
+    (eager, c_eager), (graphed, c_graphed) = out['eager'], out['graphed']
+    for field in ('theta', 'lml', 'scale_sq', 'center', 'df'):
+        a, b = getattr(eager, field), getattr(graphed, field)
+        assert torch.equal(a, b), field
+    assert torch.isfinite(eager.lml).all()
+    chunks = -(-B // chunk)
+    assert c_graphed.pop('lbfgs.steps_replayed') == chunks * (maxiter - 1)
+    assert 'lbfgs.steps_replayed' not in c_eager
+    assert c_graphed == c_eager
+    assert c_eager['lbfgs.steps'] == chunks * maxiter
+    if dtype == torch.float32:
+        assert c_eager['k1.launches'] > 0
+        assert c_eager['k1.matrices.128'] >= c_eager['k1.launches']
+
+
+@pytest.mark.parametrize('n,dtype,engine,maxiter,per_fit', [
+    (350, torch.float64, 'auto', 20, 222),      # nn350.fits
+    (512, torch.float32, 'blocked', 6, 68),     # e2d4096.fits' trip
+])
+def test_graphed_fit_counts_the_closed_form(cuda, n, dtype, engine, maxiter,
+                                            per_fit):
+    """Under replay ``chol.matrices`` still counts 1 + maxiter·(ls_steps +
+    1) objective rows and one posterior factorization a fit (the blocked
+    engine factors each row once): 222 at maxiter 20, 68 at maxiter 6."""
+    from gsum_tpu_torch.parallel import batched_fit
+
+    B = 3
+    X, Y = _fit_curves(cuda, n, B, dtype)
+    before = counters()
+    batched_fit(gt.RBF(0.5, (1e-2, 1e2)), X, Y, df=3, scale=1,
+                nugget=1e-10 if dtype == torch.float64 else 1e-2,
+                maxiter=maxiter, ls_steps=10, engine=engine,
+                precision={torch.float64: 'f64', torch.float32: 'f32'}[dtype])
+    torch.cuda.synchronize()
+    after = counters()
+    assert after['chol.matrices'] - before['chol.matrices'] == B * per_fit
+    assert after['lbfgs.steps_replayed'] - before['lbfgs.steps_replayed'] \
+        == maxiter - 1
+
+
+@pytest.mark.parametrize('n,dtype,engine', [
+    (128, torch.float64, 'grid'), (256, torch.float64, 'scan'),
+    (350, torch.float64, 'auto'), (512, torch.float32, 'auto')])
+def test_one_eager_step_of_each_fit_engine_makes_no_sync(cuda, monkeypatch,
+                                                         n, dtype, engine):
+    """One eager L-BFGS iteration of each grid engine's fit objective
+    (unrolled, scan, blocked f64 at block 64, blocked f32 with K1) runs
+    under ``torch.cuda.set_sync_debug_mode('error')``: no copy from the
+    host and no read of a device value, which a capture could not hold."""
+    from gsum_tpu_torch import optimize
+    from gsum_tpu_torch.parallel import batched, batched_fit
+
+    step = optimize._Lbfgs.step
+
+    def strict(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            step(self)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+
+    monkeypatch.setattr(optimize._Lbfgs, 'step', strict)
+    monkeypatch.setattr(batched, '_graphed', lambda *a: False)
+    X, Y = _fit_curves(cuda, n, 2, dtype)
+    post = batched_fit(gt.RBF(0.5, (1e-2, 1e2)), X, Y, df=3, scale=1,
+                       nugget=1e-8 if dtype == torch.float64 else 1e-2,
+                       maxiter=1, ls_steps=4, engine=engine,
+                       precision={torch.float64: 'f64',
+                                  torch.float32: 'f32'}[dtype])
+    assert torch.isfinite(post.lml).all()
+
+
+def test_graphed_fit_with_a_fixed_vector_hyperparameter_equals_eager(
+        cuda, monkeypatch):
+    """A fixed hyperparameter of several values is copied to the card once,
+    in the eager start, and kept on the kernel, so the capture holds no
+    copy from the host: the graphed fit equals the eager one bit for
+    bit."""
+    from gsum_tpu_torch.parallel import batched, batched_fit
+
+    X1, Y = _fit_curves(cuda, 128, 6, torch.float64)
+    X = torch.cat([X1, X1 ** 2], 1)
+    rule = batched._graphed
+    assert rule(X.device, batched._engine('grid'), 6)
+    out = {}
+    for route in ('eager', 'graphed'):
+        monkeypatch.setattr(batched, '_graphed', rule if route == 'graphed'
+                            else lambda *a: False)
+        kernel = gt.ConstantKernel(1.0, (1e-2, 1e2)) \
+            * gt.RBF([0.3, 0.5], 'fixed')
+        out[route] = batched_fit(kernel, X, Y, df=3, scale=1, nugget=1e-8,
+                                 maxiter=6, ls_steps=6, chunk=4,
+                                 engine='grid', precision='f64')
+    for field in ('theta', 'lml', 'scale_sq', 'center', 'df'):
+        assert torch.equal(getattr(out['eager'], field),
+                           getattr(out['graphed'], field)), field
+    assert torch.isfinite(out['eager'].lml).all()
+
+
+def test_a_patched_step_reaches_every_replayed_iteration(cuda, monkeypatch):
+    """Every iteration, the captured one included, goes through
+    ``_Lbfgs.step``: with it patched to do nothing, a graphed fit keeps its
+    start, as an eager one does."""
+    from gsum_tpu_torch import optimize
+    from gsum_tpu_torch.parallel import batched, batched_fit
+
+    X, Y = _fit_curves(cuda, 128, 4, torch.float64)
+    kernel = gt.RBF(0.5, (1e-2, 1e2))
+    assert batched._graphed(X.device, batched._engine('grid'), 6)
+    monkeypatch.setattr(optimize._Lbfgs, 'step', lambda self: None)
+    post = batched_fit(kernel, X, Y, df=3, scale=1, nugget=1e-8, maxiter=6,
+                       ls_steps=4, engine='grid', precision='f64')
+    start = torch.as_tensor(kernel.theta, dtype=post.theta.dtype,
+                            device=post.theta.device)
+    # the start, up to the bounds' round trip; a fit moves it by far more
+    torch.testing.assert_close(post.theta, start.expand_as(post.theta),
+                               rtol=0, atol=1e-9)
+
+
+def test_graphed_fits_keep_one_pool_until_released(cuda):
+    """The captures of every call share one pool, as large as the largest
+    step captured: the memory the card reserves does not grow from call to
+    call, and ``release_graph_memory`` gives it back."""
+    from gsum_tpu_torch.optimize import release_graph_memory
+    from gsum_tpu_torch.parallel import batched_fit
+
+    X, Y = _fit_curves(cuda, 350, 12, torch.float64)
+    reserved = []
+    for _ in range(3):
+        post = batched_fit(gt.RBF(0.5, (1e-2, 1e2)), X, Y, df=3, scale=1,
+                           nugget=1e-10, maxiter=6, ls_steps=10, chunk=8,
+                           precision='f64')
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        assert torch.isfinite(post.lml).all()
+    assert max(reserved) <= reserved[0] + 64 * 2 ** 20
+    release_graph_memory()
+    assert torch.cuda.memory_reserved() <= \
+        torch.cuda.memory_allocated() + 256 * 2 ** 20 < reserved[-1]

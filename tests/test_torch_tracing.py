@@ -7,8 +7,10 @@ factorizations, fitted rows and grid rows equal the closed forms derived
 from the code: per fit row, ``(1 + maxiter·(ls_steps + 1))`` objective rows,
 each factored twice by the scan engine (``ops.gridlml._safe_factor``) or
 once by the blocked one, plus one posterior Cholesky; per θ row of a
-truncation surface, two.  The kernels' launches are registry counters, not
-function attributes.
+truncation surface, two.  ``lbfgs.steps`` counts ``maxiter`` a chunk, and
+on the CPU no step is replayed from a CUDA graph (the rule
+``parallel.batched._graphed``).  The kernels' launches are registry
+counters, not function attributes.
 """
 import numpy as np
 import pytest
@@ -117,7 +119,91 @@ def test_fit_counts_match_the_closed_form(engine, factored):
     got = _delta(lambda: _fit(engine))
     rows = 1 + MAXITER * (LS_STEPS + 1)
     assert got == {'chol.matrices': B * (rows * factored + 1),
-                   'fit.rows': B}
+                   'fit.rows': B, 'lbfgs.steps': MAXITER}
+
+
+def test_lbfgs_steps_count_every_chunk_and_none_replay_on_the_cpu():
+    X, y = _data()
+    got = _delta(lambda: batched_fit(
+        gt.RBF(0.3, (1e-2, 10)), X, y, df=3, maxiter=3, ls_steps=LS_STEPS,
+        chunk=2, engine='blocked'))
+    assert got['lbfgs.steps'] == 3 * 2            # maxiter × chunks
+    assert 'lbfgs.steps_replayed' not in got      # counted 0
+
+
+_CUDA = torch.device('cuda')   # a device name: no card is asked for
+
+
+@pytest.mark.parametrize('device,engine,maxiter,graphed', [
+    (torch.device('cpu'), 'blocked', 20, False),
+    (_CUDA, None, 20, False),                     # scalar engine
+    (_CUDA, 'scan', 4, False),                    # below threshold
+    (_CUDA, 'blocked', 5, True),
+    (_CUDA, 'unrolled', 20, True),
+    (_CUDA, 'scan', 20, True),
+])
+def test_graph_rule_reads_device_engine_trip_and_kernel(device, engine,
+                                                        maxiter, graphed):
+    from gsum_tpu_torch.parallel.batched import _GRAPH_MIN_ITER, _graphed
+
+    assert _GRAPH_MIN_ITER == 5
+    assert _graphed(device, engine, maxiter) is graphed
+
+
+def test_releasing_graph_memory_with_none_kept_does_nothing():
+    from gsum_tpu_torch import optimize
+
+    assert optimize._LAST_GRAPH == {}
+    optimize.release_graph_memory()
+    assert 'release_graph_memory' in optimize.__all__
+
+
+@pytest.mark.parametrize('kernel,name', [
+    (gt.RBF([0.3, 0.5], 'fixed'), 'length_scale'),
+    (gt.ConstantKernel(2.0, 'fixed'), 'constant_value'),
+])
+def test_a_fixed_hyperparameter_is_built_once_for_its_value(kernel, name):
+    """A kernel's fixed hyperparameter is built on the device once and kept
+    (a value of several entries is a copy from the host, which no CUDA
+    graph can hold), and built again when the value changes."""
+    theta = torch.zeros(0, dtype=torch.float64)
+    first = kernel._resolve(theta)[name]
+    assert kernel._resolve(theta)[name] is first
+    setattr(kernel, name, 2 * np.asarray(getattr(kernel, name)))
+    again = kernel._resolve(theta)[name]
+    assert again is not first and torch.equal(again, 2 * first)
+    assert torch.equal(kernel.clone()._resolve(theta)[name], again)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('center,disp,df', [(0.0, 0.0, 3.0),
+                                            (0.4, 2.0, 3.0),
+                                            (-0.2, 0.5, np.inf)])
+def test_fit_prior_built_once_gives_todays_values(dtype, center, disp, df):
+    """The fit objective's priors, built once as float64 tensors and cast
+    on the device, are the host conversions ``cgp_lml_grid`` made at every
+    call, and give its lml bit for bit."""
+    from gsum_tpu_torch.ops.gridlml import _cgp_lml_grid, _prior
+
+    X, y = _data(B=1)
+    R = torch.exp(-0.5 * (X - X.T)[None] ** 2
+                  / torch.tensor([0.05, 0.1])[:, None, None] ** 2) \
+        + 1e-2 * torch.eye(N, dtype=torch.float64)
+    R, y, basis = R.to(dtype), y[0].to(dtype), torch.ones(N, 1, dtype=dtype)
+    prior = _prior(center, disp, df, R.device)
+    assert torch.equal(prior.center0.to(dtype), torch.as_tensor(
+        np.atleast_1d(np.asarray(center, dtype=float)), dtype=dtype))
+    if disp:
+        assert torch.equal(prior.disp0_inv.to(dtype), torch.as_tensor(
+            np.linalg.inv(np.atleast_2d(disp)), dtype=dtype))
+    else:
+        assert prior.disp0_inv is None
+    for engine in ('unrolled', 'scan', 'blocked'):
+        want = ops.cgp_lml_grid(R, y, basis, center, disp, df, 1.3,
+                                engine=engine, block=32)
+        got = _cgp_lml_grid(R, y, basis, prior, df, 1.3, engine=engine,
+                            block=32)
+        assert torch.isfinite(want).all() and torch.equal(got, want)
 
 
 def test_mixed_precision_fit_is_one_span_over_both_sweeps():
