@@ -70,11 +70,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
      A, ``parallel.batched_fit`` of 10,240 curves at N=128 f64 (and
      ``precision='mixed'`` on the first chunk); B, 8 fits at N=4096 f32
      through the blocked engine (K1 in every forward; its launches against
-     the count derived from the code), the scalar engine and the blocked
-     engine with 3xTF32 GEMMs (``mxu_precision='high'``), each fit's lml
-     against the f64 single model at its θ; C, ``batched_lml_grid`` over 10,240 θ
-     at N=512, d=2 (the scan engine); D, the grid lml at N=256, G=512, f32
-     and f64; E, ``truncation_lml_grid`` (100 θ × 80 ratios, gp and tp) on
+     the count derived from the code) and the scalar engine, each fit's
+     lml against the f64 single model at its θ; C, ``batched_lml_grid``
+     over 10,240 θ at N=512, d=2 (the scan engine); D, the grid lml at
+     N=256, G=512, f32 and f64; E, ``truncation_lml_grid`` (100 θ × 80 ratios, gp and tp) on
      path 5's partial sums at N=256, against the truncation models' lml;
      F, ``pointwise_evidence_grid`` at 1500 ratios on path 6's data,
      against path 6's loop; G, ``batched_posterior_at`` and
@@ -130,9 +129,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    computes both of its outputs (context, not its ``library_ms``); beside
    K2 also ``fill_`` of the same memory, the practical rate of writing it,
    and K2 in f64 (context too);
-6. profiles each headline pipeline once with ``torch.profiler`` (the
-   blocked route also with ``precision='high'``): device time by kernel
-   and the device's idle share;
+6. profiles each headline pipeline once with ``torch.profiler``: device
+   time by kernel and the device's idle share;
 7. times the single model's fit, lml + gradient and predict, and the
    blocked autograd routes' forward + backward, and profiles one lml +
    gradient and one forward + backward of ``blocked_spd_solve_logdet``;
@@ -143,10 +141,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``.  It
    use, at (4096, 5), at ``helpers.hpd``'s one-element quantile and at
    an interval's two-element one, and path 6's calls, profiles one
    pointwise interval;
-10. times the blocked route with 3xTF32 GEMMs (``precision='high'``)
-    beside it and reports its logpdf error against the f64 reference at
-    the headline's nugget and two larger ones; profiles one line search
-    of path 7's leg B; prints the script's wall time.
+10. profiles one line search of path 7's leg B; prints the script's wall
+    time.
 
 Any failed check raises, so the exit code is not 0.  The line before the
 last is a JSON record of the kernels; the last line is
@@ -1454,9 +1450,7 @@ def time_model_checking(out, card, kernels, counts, device='cuda'):
 FIT_B, FIT_N, FIT_MAXITER, FIT_CHUNK = 10240, 128, 12, 2048        # leg A
 WIDE_B, WIDE_N, WIDE_MAXITER, WIDE_NUGGET = 8, 4096, 6, 1e-2       # leg B
 WIDE_RUNS = {'auto (blocked, K1)': dict(engine='auto', ls_steps=10, chunk=4),
-             'scalar': dict(engine='scalar', ls_steps=5, chunk=1),
-             'auto, mxu_precision=high (3xTF32)': dict(
-                 engine='auto', ls_steps=10, chunk=4, mxu_precision='high')}
+             'scalar': dict(engine='scalar', ls_steps=5, chunk=1)}
 WIDE_TOL = 1e-3        # an f32 fit's lml vs the f64 single model at its θ
 GRID_G, GRID_N, GRID_CHUNK = 10240, 512, 1024                       # leg C
 BGRID_N, BGRID_G = 256, 512                                         # leg D
@@ -3318,22 +3312,6 @@ def main():
         raise AssertionError('blocked route disagrees with its references')
     print(f'context: f32 torch.linalg.cholesky pipeline vs f64 reference '
           f'{max_rel(pipeline(method="xla")(), ref):.3e}')
-    # the 3xTF32 opt-in on the headline and at larger nuggets, measured
-    # against the limit
-    for noise in (NOISE, 1e-1, 1.0):
-        got = batched_chol_logpdf(X, y, LS, AMP, noise, precision='high')
-        rel_tf32 = max_rel(got, ref if noise == NOISE
-                           else reference_logpdf(X, y, noise))
-        print(f'3xTF32 opt-in (blocked route, precision=high) at nugget '
-              f'{noise:g} vs f64 reference: max rel {rel_tf32:.3e}, '
-              f'non-finite logpdfs {(~torch.isfinite(got)).sum().item()} of '
-              f'{got.numel()}, limit {REL_TOL:g}: '
-              f'{"within" if rel_tf32 <= REL_TOL else "OUTSIDE"} the limit')
-    print(f'allow_tf32 after the calls '
-          f'{torch.backends.cuda.matmul.allow_tf32}')
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError('precision=high left TF32 on')
-
     # path 1: the fused route
     torch.cuda.reset_peak_memory_stats()
     fused_out, counts = drive(pipeline(method='fused'))
@@ -3378,8 +3356,6 @@ def main():
     # timings
     flops = flops_chol_logpdf(B, N, D, M)
     times = time_ms({'blocked, kernel diag (auto)': pipeline(method='auto'),
-                     'blocked, 3xTF32 GEMMs (precision=high)': pipeline(
-                         method='auto', precision='high'),
                      'blocked, plain diag': pipeline(method='auto',
                                                      diag='recursive'),
                      'torch.linalg.cholesky (xla)': pipeline(method='xla'),
@@ -3470,8 +3446,6 @@ def main():
     record('rbf_covariance_pallas', err, t, None, bnd)
 
     for label, kw in (('blocked', {'method': 'auto'}),
-                      ('blocked 3xTF32', {'method': 'auto',
-                                          'precision': 'high'}),
                       ('fused', {'method': 'fused'})):
         profile(f'pipeline {label} [{card}]', pipeline(**kw))
 

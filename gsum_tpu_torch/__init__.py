@@ -25,8 +25,9 @@ pointwise truncation model ``models.TruncationPointwise``, the numerical
 the HPD intervals, ``kl_gauss``, the decorators, ``VariogramFourthRoot``);
 batched throughput on one card: the bounded L-BFGS engines of
 ``optimize``, ``ops.smallchol`` / ``ops.scanchol`` / ``ops.gridlml``, and
-``parallel`` (batched fits, grid sweeps, the batched posterior), with the
-3xTF32 opt-in (``precision`` / ``mxu_precision``); model checking,
+``parallel`` (batched fits, grid sweeps, the batched posterior), whose
+``precision`` / ``mxu_precision`` of JAX's signatures compute in full f32
+whatever their value; model checking,
 derivative observations and sampling: ``derivs`` (derivative
 cross-covariances by ``torch.func``, behind the models' ``dorders`` and
 ``dderivs``), ``diagnostics.GraphicalDiagnostic`` with its renderer

@@ -6,11 +6,10 @@ for each log-marginal-likelihood evaluation; here the same work runs
 batched over leading dimensions.  :func:`batched_chol_logpdf` is the
 pipeline that ``bench.py`` measures for the JAX package.
 
-GEMMs run in full f32 by default: one TF32 product keeps about three
-decimal digits, enough to break positive-definiteness of a large
-covariance.  ``batched_chol_logpdf(precision='high')`` runs the blocked
-route's factorization as 3xTF32 products (``ops.blockchol``), the
-counterpart of JAX's ``precision=Precision.HIGH``.
+GEMMs run in full f32: one TF32 product keeps about three decimal digits,
+enough to break positive-definiteness of a large covariance.
+``batched_chol_logpdf``'s ``precision`` (JAX's ``Precision.HIGH`` and
+``HIGHEST``) is accepted for the signature and changes nothing.
 """
 from __future__ import annotations
 
@@ -111,12 +110,9 @@ def batched_chol_logpdf(X, y, length_scale, amplitude, noise, method='auto',
         (``ops.fusedchol``, f32 only, N a multiple of the block); 'xla' is
         ``torch.linalg.cholesky`` (the name is the JAX package's); 'auto'
         selects 'blocked' for N > 512.
-    precision : None (= 'highest') | 'highest' | 'high' — arithmetic of
-        the blocked route's factorization GEMMs ('high' is 3xTF32, three
-        TF32 tensor-core products on split operands,
-        ``ops.blockchol._mm``).  The covariance build and the solve stay
-        full f32, as in JAX, and the fused route's kernel and the diagonal
-        kernel do FFMA arithmetic, unaffected.
+    precision : None | 'highest' | 'high' — accepted for the JAX
+        signature (the blocked route refuses any other value); every
+        value computes in full f32
     diag : the blocked factorization's diagonal-block engine, 'auto' |
         'kernel' | 'recursive' (``torch.linalg``)
     block : column-block width, or None for the selected engine's default

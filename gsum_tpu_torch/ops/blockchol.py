@@ -20,19 +20,10 @@ upper-triangular solves) and :func:`blocked_spd_solve_logdet` (the
 differentiable lml core: four GEMM passes that reuse the forward's
 diagonal-block inverses, so its backward launches no diagonal kernel).
 
-``precision`` sets the GEMMs' arithmetic: ``None`` / ``'highest'`` full
-f32, the default; ``'high'`` runs the products whose inner dimension grows
-with N (the factorization's history GEMM, the backwards' N-RHS updates
-and MᵀM) as three TF32 tensor-core GEMMs on split operands (3xTF32,
-:func:`_mm`), the counterpart of the bf16×3 behind JAX's
-``Precision.HIGH`` on the TPU: about 2⁻²¹ relative per product where one
-TF32 GEMM keeps 2⁻¹¹, which no covariance of the library's conditioning
-survives.  The precision travels with the products (kept in ``ctx`` for
-the backwards), not in a global setting.  The products with a diagonal
-block's inverse, the solves against a few right-hand sides and the
-``'hier'`` engine's products stay full f32; the CUDA diagonal kernel does
-its arithmetic in FFMA and is not affected; on the CPU and in f64
-``'high'`` changes nothing.
+``precision`` is accepted for the JAX package's signatures: every value
+computes in full f32.  (JAX's ``Precision.HIGH`` is bf16×3 on the TPU,
+for speed; on an NVIDIA H100 3xTF32 products took 1.1 times as long as
+full f32 on the blocked pipeline and doubled its error.)
 """
 from __future__ import annotations
 
@@ -48,96 +39,13 @@ __all__ = ['batched_blocked_cholesky', 'blocked_chol_solve_logdet',
            'blocked_tri_inv_diag', 'blocked_solve_lower']
 
 
-_TF32_MASK = -(1 << 13)   # the sign, the exponent and TF32's 10 mantissa bits
-_TF32_HALF = 1 << 12      # half a unit in TF32's last place
-
-
-def _split_gemms(precision, x):
-    """Whether ``precision`` asks for 3xTF32 products on ``x``: ``'high'``
-    on a CUDA float32 tensor.  ``None`` and ``'highest'`` are full f32."""
-    if precision is None:
-        return False
-    if not (isinstance(precision, str)
-            and precision.lower() in ('highest', 'high')):
-        raise ValueError("precision must be None, 'highest' or 'high', "
-                         "got %r" % (precision,))
-    return (precision.lower() == 'high' and x.is_cuda
-            and x.dtype == torch.float32)
-
-
-def _tf32_round(x):
-    """float32 ``x`` rounded to the nearest TF32 value (10-bit mantissa,
-    ties away from zero), so that a TF32 GEMM takes it exactly whatever
-    its own input rounding."""
-    return ((x.view(torch.int32) + _TF32_HALF) & _TF32_MASK).view(
-        torch.float32)
-
-
-def _tf32_parts(x):
-    """(hi, lo) of float32 ``x``, both TF32 values: hi is x rounded to TF32
-    (|x − hi| ≤ 2⁻¹¹|x|) and lo is x − hi rounded to TF32, so hi + lo is
-    within 2⁻²³ of x."""
-    hi = _tf32_round(x)
-    return hi, _tf32_round(x - hi)
-
-
-def _mm(a, b, split=False):
-    """``a @ b``; with ``split``, the 3xTF32 product ``hi·hi + (hi·lo +
-    lo·hi)`` of the operands' TF32 parts (an operand may come as its
-    ``(hi, lo)`` pair), each term a TF32 tensor-core GEMM with f32
-    accumulation.  The dropped lo·lo term (≤ 2⁻²²) and lo's rounding leave
-    about 2⁻²¹ of ``|a||b|``.  The blocked functions split the products
-    whose inner dimension grows with N (the history GEMM, the N-RHS
-    substitutions' updates, MᵀM); a product with a diagonal block's
-    inverse has the block's width inside, is memory-bound, and stays full
-    f32.
-
-    TF32 is PyTorch's process-wide flag
-    ``torch.backends.cuda.matmul.allow_tf32``: it is set while the three
-    GEMMs are issued and restored at once, also on an error; an f32 GEMM
-    that another thread issues in that window runs in TF32 too.
-    """
-    if not split:
-        return torch.matmul(a, b)
-    ah, al = a if isinstance(a, tuple) else _tf32_parts(a)
-    bh, bl = b if isinstance(b, tuple) else _tf32_parts(b)
-    flags = torch.backends.cuda.matmul
-    old = flags.allow_tf32
-    flags.allow_tf32 = True
-    try:
-        return torch.matmul(ah, bh) + (torch.matmul(ah, bl)
-                                       + torch.matmul(al, bh))
-    finally:
-        flags.allow_tf32 = old
-
-
-class _Blocks:
-    """A buffer written block by block (a factor, a substitution's
-    solution) and, for 3xTF32 products, its TF32 parts beside it: each
-    block is split once, as it is written, not at every product that reads
-    it."""
-
-    def __init__(self, x, split):
-        # the products read only blocks already written, so the parts
-        # need no fill
-        self.x = x
-        self.parts = ((torch.empty_like(x), torch.empty_like(x)) if split
-                      else None)
-
-    def __setitem__(self, idx, value):
-        self.x[idx] = value
-        if self.parts is not None:
-            for part, v in zip(self.parts, _tf32_parts(value)):
-                part[idx] = v
-
-    def operand(self, rows, cols=slice(None), transpose=False):
-        """``x[..., rows, cols]`` (transposed) as an operand of :func:`_mm`:
-        the tensor, or its (hi, lo) pair."""
-        views = [self.x] if self.parts is None else self.parts
-        views = [v[..., rows, cols] for v in views]
-        if transpose:
-            views = [v.mT for v in views]
-        return views[0] if self.parts is None else tuple(views)
+def _check_precision(value, name='precision'):
+    """Refuses a ``value`` of ``name`` other than None, ``'highest'`` or
+    ``'high'`` (any case); all three compute in full f32."""
+    if value is not None and not (isinstance(value, str)
+                                  and value.lower() in ('highest', 'high')):
+        raise ValueError("%s must be None, 'highest' or 'high', got %r"
+                         % (name, value))
 
 
 def _diag_engine(K, block, diag):
@@ -191,32 +99,31 @@ def _factor_diag_hier(Akk, sub=_HIER_SUB):
     return L, Minv
 
 
-def _blocked_factor(K, block, engine, split=False):
+def _blocked_factor(K, block, engine):
     """Left-looking blocked factorization of K, N a multiple of ``block``.
 
     Returns (L, minvs): the factor and the list of diagonal-block inverses.
     L is one preallocated buffer written column block by column block in
     place (where JAX writes ``L.at[...].set``); the history GEMM reads
-    strided views of it.  ``split``: 3xTF32 products (:func:`_mm`).
+    strided views of it.
     """
     N = K.shape[-1]
-    L = _Blocks(torch.zeros_like(K), split)
+    L = torch.zeros_like(K)
     minvs = []
     for k in range(N // block):
         s = k * block
         A_col = K[..., s:, s:s + block]             # (..., N-s, b)
         if k:
             # one GEMM against all finished columns: rows s:, cols :s
-            A_col = A_col - _mm(
-                L.operand(slice(s, None), slice(None, s)),
-                L.operand(slice(s, s + block), slice(None, s), True), split)
+            A_col = A_col - torch.matmul(L[..., s:, :s],
+                                         L[..., s:s + block, :s].mT)
         Lkk, Minv = _factor_diag(A_col[..., :block, :], engine)
         minvs.append(Minv)
         L[..., s:s + block, s:s + block] = Lkk
         if s + block < N:
             L[..., s + block:, s:s + block] = torch.matmul(
                 A_col[..., block:, :], Minv.mT)
-    return L.x, minvs
+    return L, minvs
 
 
 def _pad_spd(K, block):
@@ -235,36 +142,34 @@ def _pad_rows(Y, pad):
     return torch.nn.functional.pad(Y, (0, 0, 0, pad)) if pad else Y
 
 
-def _blocked_lower_solve(L, minvs, Y, split=False):
+def _blocked_lower_solve(L, minvs, Y):
     """Solves ``L w = Y`` by blocked forward substitution against the
     diagonal-block inverses; shapes pre-padded."""
     block = minvs[0].shape[-1]
-    w = _Blocks(torch.empty_like(Y), split)
+    w = torch.empty_like(Y)
     for k, Minv in enumerate(minvs):
         s = k * block
         rhs = Y[..., s:s + block, :]
         if k:
-            rhs = rhs - _mm(L[..., s:s + block, :s],
-                            w.operand(slice(None, s)), split)
+            rhs = rhs - torch.matmul(L[..., s:s + block, :s], w[..., :s, :])
         w[..., s:s + block, :] = torch.matmul(Minv, rhs)
-    return w.x
+    return w
 
 
-def _blocked_upperT_solve(L, minvs, Y, split=False):
+def _blocked_upperT_solve(L, minvs, Y):
     """Solves ``Lᵀ x = Y`` by blocked backward substitution; shapes
     pre-padded."""
     block = minvs[0].shape[-1]
     nb = len(minvs)
-    x = _Blocks(torch.empty_like(Y), split)
+    x = torch.empty_like(Y)
     for k in reversed(range(nb)):
         s = k * block
         rhs = Y[..., s:s + block, :]
         if k < nb - 1:
             L_below = L[..., s + block:, s:s + block]          # (..., r, b)
-            rhs = rhs - _mm(L_below.mT, x.operand(slice(s + block, None)),
-                            split)
+            rhs = rhs - torch.matmul(L_below.mT, x[..., s + block:, :])
         x[..., s:s + block, :] = torch.matmul(minvs[k].mT, rhs)
-    return x.x
+    return x
 
 
 def _logdet_from_chol(L):
@@ -283,9 +188,8 @@ def blocked_chol_solve_logdet(K, Y, block=256, leaf=32, precision=None,
     leaf : accepted for the JAX signature; it has no effect (the JAX
         package's leaf recursion of the diagonal blocks is its TPU
         kernel's, and the port factors a diagonal block whole)
-    precision : None (= 'highest') | 'highest' | 'high' — the
-        factorization's GEMMs' arithmetic (``'high'``: 3xTF32 on CUDA
-        float32); the solve of Y is full f32
+    precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every value computes in full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block engine
 
     Returns
@@ -294,7 +198,7 @@ def blocked_chol_solve_logdet(K, Y, block=256, leaf=32, precision=None,
     """
     K, Y = promoted(K, Y)
     N = K.shape[-1]
-    split = _split_gemms(precision, K)
+    _check_precision(precision)
     if N <= block:
         L = _cholesky_nan(K)
         w = torch.linalg.solve_triangular(L, Y, upper=False)
@@ -302,7 +206,7 @@ def blocked_chol_solve_logdet(K, Y, block=256, leaf=32, precision=None,
 
     engine = _diag_engine(K, block, diag)
     Kp, pad = _pad_spd(K, block)
-    L, minvs = _blocked_factor(Kp, block, engine, split)
+    L, minvs = _blocked_factor(Kp, block, engine)
     w = _blocked_lower_solve(L, minvs, _pad_rows(Y, pad))
     if pad:
         w = w[..., :N, :]
@@ -317,12 +221,13 @@ def blocked_factor(K, block=128, leaf=32, precision=None, diag='auto'):
     diagonal-block inverses ``minvs`` padded (the trailing identity block
     solves the padded rows as identity, which :func:`blocked_cho_solve`
     slices away).  Not differentiable.  ``leaf`` is accepted for the JAX
-    signature and has no effect (see :func:`blocked_chol_solve_logdet`).
+    signature and has no effect (see :func:`blocked_chol_solve_logdet`);
+    so is ``precision``: every value computes in full f32.
     """
+    _check_precision(precision)
     N = K.shape[-1]
     Kp, pad = _pad_spd(K, block)
-    L, minvs = _blocked_factor(Kp, block, _diag_engine(K, block, diag),
-                               _split_gemms(precision, K))
+    L, minvs = _blocked_factor(Kp, block, _diag_engine(K, block, diag))
     if pad:
         L = L[..., :N, :N]
     return L, minvs
@@ -333,17 +238,16 @@ def blocked_cho_solve(L, minvs, Y, precision=None):
 
     nb forward and nb backward blocked-substitution steps, each a batched
     GEMM against the diagonal-block inverses; only the lower triangle of L
-    is read.
+    is read.  ``precision`` is accepted for the JAX signature: every value
+    computes in full f32.
     """
+    _check_precision(precision)
     block = minvs[0].shape[-1]
     N = Y.shape[-2]
     pad = len(minvs) * block - N
     Lp, _ = _pad_spd(L, block)
-    Yp = _pad_rows(Y, pad)
-    split = _split_gemms(precision, Y)
-    x = _blocked_upperT_solve(Lp, minvs,
-                              _blocked_lower_solve(Lp, minvs, Yp, split),
-                              split)
+    w = _blocked_lower_solve(Lp, minvs, _pad_rows(Y, pad))
+    x = _blocked_upperT_solve(Lp, minvs, w)
     return x[..., :N, :] if pad else x
 
 
@@ -375,12 +279,12 @@ def blocked_solve_lower(L, Y, leaf=32):
     return torch.linalg.solve_triangular(L, Y, upper=False)
 
 
-def _blocked_cholesky_raw(K, block, diag, split):
+def _blocked_cholesky_raw(K, block, diag):
     N = K.shape[-1]
     if N <= block:
         return _cholesky_nan(K)
     Kp, pad = _pad_spd(K, block)
-    L, _ = _blocked_factor(Kp, block, _diag_engine(K, block, diag), split)
+    L, _ = _blocked_factor(Kp, block, _diag_engine(K, block, diag))
     return L[..., :N, :N] if pad else L
 
 
@@ -390,9 +294,9 @@ class _BlockedCholesky(torch.autograd.Function):
     upper-triangular solves with N right-hand sides."""
 
     @staticmethod
-    def forward(ctx, K, block, diag, precision):
-        ctx.block, ctx.split = block, _split_gemms(precision, K)
-        L = _blocked_cholesky_raw(K, block, diag, ctx.split)
+    def forward(ctx, K, block, diag):
+        ctx.block = block
+        L = _blocked_cholesky_raw(K, block, diag)
         ctx.save_for_backward(L)
         return L
 
@@ -400,9 +304,9 @@ class _BlockedCholesky(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, Lbar):
         (L,) = ctx.saved_tensors
-        block, split = ctx.block, ctx.split
+        block = ctx.block
         n = L.shape[-1]
-        W = _mm(L.mT, Lbar, split)
+        W = L.mT @ Lbar
         W = torch.tril(W) - 0.5 * W * torch.eye(n, dtype=L.dtype,
                                                 device=L.device)
         if n <= block:
@@ -418,11 +322,11 @@ class _BlockedCholesky(torch.autograd.Function):
             minvs = [_tri_inv(Lp[..., s:s + block, s:s + block])
                      for s in range(0, Lp.shape[-1], block)]
             # T = W L⁻¹ via Tᵀ = L⁻ᵀ Wᵀ;  then  K̄ = L⁻ᵀ T
-            Tt = _blocked_upperT_solve(Lp, minvs, W.mT, split)
-            Abar = _blocked_upperT_solve(Lp, minvs, Tt.mT, split)
+            Tt = _blocked_upperT_solve(Lp, minvs, W.mT)
+            Abar = _blocked_upperT_solve(Lp, minvs, Tt.mT)
             if pad:
                 Abar = Abar[..., :n, :n]
-        return 0.5 * (Abar + Abar.mT), None, None, None
+        return 0.5 * (Abar + Abar.mT), None, None
 
 
 def batched_blocked_cholesky(K, block=256, leaf=32, precision=None,
@@ -435,8 +339,8 @@ def batched_blocked_cholesky(K, block=256, leaf=32, precision=None,
     K : (..., N, N) SPD matrices (batch dims lead)
     block : column-block width; N ≤ block factors K in one piece
     leaf : accepted for the JAX signature and ignored
-    precision : None | 'highest' | 'high' — the GEMMs' arithmetic of the
-        factorization and the backward ('high': 3xTF32 on CUDA float32)
+    precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every value computes in full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block
         engine of the forward ('auto': the CUDA kernel for f32 3-D input)
 
@@ -444,7 +348,8 @@ def batched_blocked_cholesky(K, block=256, leaf=32, precision=None,
     whose factorization fails gives a non-finite or non-positive diagonal.
     The backward launches no diagonal kernel.
     """
-    return _BlockedCholesky.apply(K, block, diag, precision)
+    _check_precision(precision)
+    return _BlockedCholesky.apply(K, block, diag)
 
 
 class _BlockedSpdSolveLogdet(torch.autograd.Function):
@@ -456,12 +361,10 @@ class _BlockedSpdSolveLogdet(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, K, Y, block, diag, precision):
+    def forward(ctx, K, Y, block, diag):
         N = K.shape[-1]
         Kp, pad = _pad_spd(K, block)
-        ctx.split = _split_gemms(precision, K)
-        L, minvs = _blocked_factor(Kp, block, _diag_engine(K, block, diag),
-                                   ctx.split)
+        L, minvs = _blocked_factor(Kp, block, _diag_engine(K, block, diag))
         d = torch.diagonal(L, dim1=-2, dim2=-1)[..., :N]
         ok = torch.all(torch.isfinite(d) & (d > 0), dim=-1)
         x = _blocked_upperT_solve(
@@ -481,10 +384,10 @@ class _BlockedSpdSolveLogdet(torch.autograd.Function):
         pad = L.shape[-1] - N
         # the padded tail of L is an identity block and inverts to itself
         eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-        M = _blocked_lower_solve(L, minvs, eye.expand_as(L), ctx.split)
+        M = _blocked_lower_solve(L, minvs, eye.expand_as(L))
         Mt = M.mT
         ybar = Mt @ (M @ _pad_rows(xbar, pad))               # K⁻¹ X̄
-        kbar = lbar[..., None, None] * _mm(Mt, M, ctx.split) \
+        kbar = lbar[..., None, None] * (Mt @ M) \
             - ybar @ _pad_rows(x, pad).mT
         if pad:
             kbar = kbar[..., :N, :N]
@@ -493,7 +396,7 @@ class _BlockedSpdSolveLogdet(torch.autograd.Function):
         # are zeroed, not propagated as 0·NaN
         okc = ok[..., None, None]
         return (torch.where(okc, kbar, 0.0), torch.where(okc, ybar, 0.0),
-                None, None, None)
+                None, None)
 
 
 def blocked_spd_solve_logdet(K, Y, block=128, leaf=32, precision=None,
@@ -514,13 +417,12 @@ def blocked_spd_solve_logdet(K, Y, block=128, leaf=32, precision=None,
     K : (..., N, N) SPD;  Y : (..., N, m)
     block : column-block width (N is padded to a multiple of it)
     leaf : accepted for the JAX signature and ignored
-    precision : None | 'highest' | 'high' — the GEMMs' arithmetic of the
-        factorization and the backward ('high': 3xTF32 on CUDA float32);
-        the forward's solves of Y are full f32
+    precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every value computes in full f32
     diag : 'auto' | 'kernel' | 'recursive' | 'hier' — diagonal-block engine
 
     Each matrix of K counts once in ``chol.matrices``.
     """
+    _check_precision(precision)
     count('chol.matrices', K.shape[:-2].numel())
-    return _BlockedSpdSolveLogdet.apply(*promoted(K, Y), block, diag,
-                                        precision)
+    return _BlockedSpdSolveLogdet.apply(*promoted(K, Y), block, diag)

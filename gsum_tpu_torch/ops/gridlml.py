@@ -24,6 +24,7 @@ import torch
 
 from .._config import promoted
 from ..profiling import count
+from .blockchol import _check_precision, blocked_spd_solve_logdet
 from .smallchol import _flag, batched_small_cholesky, batched_small_tri_inv
 
 __all__ = ['cgp_lml_grid', 'cgp_lml_grid2', 'csp_lml_grid',
@@ -42,17 +43,6 @@ def batched_cho_solve(L, B, leaf=16):
     L, B = promoted(L, B)
     w = torch.linalg.solve_triangular(L, B, upper=False)
     return torch.linalg.solve_triangular(L.mT, w, upper=True)
-
-
-def _resolve_mxu_precision(p):
-    """'highest' | 'high' | None (→ 'highest'): the blocked engine's GEMM
-    arithmetic (``ops.blockchol``'s ``precision``)."""
-    if p is None:
-        return 'highest'
-    if isinstance(p, str) and p.lower() in ('highest', 'high'):
-        return p.lower()
-    raise ValueError("mxu_precision must be 'highest' or 'high', got %r"
-                     % (p,))
 
 
 class _Prior(NamedTuple):
@@ -117,20 +107,20 @@ def cgp_lml_grid(Rs, y, basis, center0, disp0, df0, scale0, leaf=16,
         objectives (one factorization gives value, flag and gradient).
     block : int, optional — column-block width of the 'blocked' engine
         (default 128)
-    mxu_precision : 'highest' (default) | 'high' — the 'blocked' engine's
-        GEMM arithmetic ('high' is 3xTF32; ignored by the other engines,
-        as in JAX)
+    mxu_precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every engine computes in full f32
 
     Returns
     -------
     (G,) log-marginal likelihoods
     """
+    _check_precision(mxu_precision, 'mxu_precision')
     return _cgp_lml_grid(Rs, y, basis, _prior(center0, disp0, df0, Rs.device),
-                         df0, scale0, leaf, engine, block, mxu_precision)
+                         df0, scale0, leaf, engine, block)
 
 
 def _cgp_lml_grid(Rs, y, basis, prior, df0, scale0, leaf=16,
-                  engine='unrolled', block=None, mxu_precision=None):
+                  engine='unrolled', block=None):
     """:func:`cgp_lml_grid` with its priors given as a :class:`_Prior`: no
     copy from the host, so that a fit's objective can be captured."""
     if y.ndim == 1:
@@ -158,11 +148,8 @@ def _cgp_lml_grid(Rs, y, basis, prior, df0, scale0, leaf=16,
 
     logdet_R = None
     if engine == 'blocked':
-        from .blockchol import blocked_spd_solve_logdet
-
         invR_yB, logdet_R, ok = blocked_spd_solve_logdet(
-            Rs, yB, block=128 if block is None else int(block),
-            precision=_resolve_mxu_precision(mxu_precision))
+            Rs, yB, block=128 if block is None else int(block))
     elif engine == 'scan':
         from .scanchol import scan_blocked_cholesky, scan_cho_solve
 

@@ -36,6 +36,7 @@ from .. import conjugate as _conj
 from .._config import as_input, result_dtype
 from ..linalg import cholesky
 from ..models import ConjugateGaussianProcess
+from ..ops.blockchol import _check_precision
 from ..ops.gridlml import (_cgp_lml_grid, _prior, cgp_lml_grid,
                            cgp_lml_grid2, csp_lml_grid2)
 from ..optimize import _fixed_lbfgs
@@ -169,7 +170,7 @@ def _covariances(kernel, thetas, X, nugget):
 
 
 def _grid_lml(frozen, thetas, X, y2, basis, center, disp, df, scale, nugget,
-              grid_engine, mxu_precision=None):
+              grid_engine):
     """The lml at each θ row: ``cgp_lml_grid`` with ``grid_engine``
     ('unrolled' | 'scan' | 'blocked'), or the vmapped scalar lml (None)."""
     if grid_engine is None:
@@ -177,8 +178,7 @@ def _grid_lml(frozen, thetas, X, y2, basis, center, disp, df, scale, nugget,
         return vmap(lambda th: lml(th, X, y2, basis))(thetas)
     return cgp_lml_grid(_covariances(frozen, thetas, X, nugget), y2, basis,
                         np.atleast_1d(center), np.atleast_2d(disp), df,
-                        scale, engine=grid_engine,
-                        mxu_precision=mxu_precision)
+                        scale, engine=grid_engine)
 
 
 def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
@@ -208,8 +208,8 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
         entries are exactly the f64 values, the rest carry about
         eps32·κ(R_θ) relative error
     top_k : int — points evaluated again at f64 in 'mixed'
-    mxu_precision : None (= 'highest') | 'high' — the blocked engine's GEMM
-        arithmetic ('high' is 3xTF32, ``ops.blockchol``)
+    mxu_precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every engine computes in full f32
 
     Returns
     -------
@@ -217,12 +217,12 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
     """
     if precision not in ('f64', 'f32', 'mixed'):
         raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
+    _check_precision(mxu_precision, 'mxu_precision')
     X = as_input(X, device=_first_device(mesh))
     if precision == 'mixed':
         vals32 = batched_lml_grid(kernel, X, y, thetas, center, disp, df,
                                   scale, nugget, mesh, basis, engine,
-                                  precision='f32',
-                                  mxu_precision=mxu_precision)
+                                  precision='f32')
         thetas = as_input(thetas, device=X.device)
         k = min(int(top_k), thetas.shape[0])
         idx = torch.argsort(vals32)[-k:]
@@ -256,7 +256,7 @@ def batched_lml_grid(kernel, X, y, thetas, center=0, disp=0, df=1, scale=1,
             grid_engine = _engine(engine)
         return _grid_lml(frozen, ths, X.to(device), y2.to(device),
                          basis.to(device), center, disp, df, scale, nugget,
-                         grid_engine, mxu_precision)
+                         grid_engine)
 
     if mesh is not None:
         return _over_batch(mesh, 'batched_lml_grid', sweep, thetas)
@@ -312,9 +312,8 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
         (restarts included) at f32, then ``polish_iters`` f64 iterations
         per fit from its f32 optimum, and computes the state at f64
     polish_iters : int — f64 polish iterations per fit in 'mixed'
-    mxu_precision : None (= 'highest') | 'high' — the blocked engine's
-        GEMM arithmetic ('high' is 3xTF32, ``ops.blockchol``); ignored
-        by the other engines
+    mxu_precision : None | 'highest' | 'high' — accepted for the JAX
+        signature; every engine computes in full f32
 
     Returns
     -------
@@ -328,6 +327,7 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
     with span('gsum.fit'):
         if precision not in ('f64', 'f32', 'mixed'):
             raise ValueError("precision must be 'f64', 'f32', or 'mixed'")
+        _check_precision(mxu_precision, 'mxu_precision')
         X = as_input(X, device=_first_device(mesh))
         y_batch = as_input(y_batch, device=X.device)
         bounds = np.asarray(kernel.bounds, dtype=float)
@@ -344,8 +344,7 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
                                  y_batch.to(torch.float32), center, disp, df,
                                  scale, nugget, maxiter, theta0, None,
                                  n_restarts, seed, chunk, basis, engine,
-                                 ls_steps, precision='f32',
-                                 mxu_precision=mxu_precision)
+                                 ls_steps, precision='f32')
             X64 = torch.atleast_2d(X.to(torch.float64))
             y64 = y_batch.to(torch.float64)
             if y64.ndim == 2:
@@ -380,8 +379,7 @@ def batched_fit(kernel, X, y_batch, center=0, disp=0, df=1, scale=1,
                     maxiter), y_batch)
         return _batched_fit_wide(kernel.clone(), X, y_batch, basis, starts,
                                  lower, upper, c0, V0, df, scale, nugget,
-                                 maxiter, chunk, engine, ls_steps,
-                                 mxu_precision=mxu_precision)
+                                 maxiter, chunk, engine, ls_steps)
 
 
 def _fit_one(frozen, X, Ys, basis, starts, lower, upper, c0, V0, df0,
@@ -498,8 +496,7 @@ def _posterior(frozen, thetas, X, Ys, basis, c0, V0, df0, scale0, nugget):
 
 def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
                       c0, V0, df0, scale0, nugget, maxiter, chunk,
-                      engine='auto', ls_steps=10, t0_per_fit=None,
-                      mxu_precision=None):
+                      engine='auto', ls_steps=10, t0_per_fit=None):
     """Lockstep fits of every (data set, start) pair, chunk by chunk; the
     best start per data set is kept."""
     B, N, m = y_batch.shape
@@ -533,8 +530,7 @@ def _batched_fit_wide(frozen, X, y_batch, basis, starts, lower, upper,
                     Th, Ys_full)
             return -_cgp_lml_grid(_covariances(frozen, Th, X, nugget),
                                   Ys_full, basis, prior, df0, scale0,
-                                  engine=grid_engine, block=block,
-                                  mxu_precision=mxu_precision)
+                                  engine=grid_engine, block=block)
 
         topt, fmin = _fixed_lbfgs(fun_b, T0, lower, upper, maxiter=maxiter,
                                   ls_steps=ls_steps, graphed=graphed)

@@ -2,7 +2,8 @@
 the CPU: ``batched_lml_grid`` (engines and precisions), the truncation
 and pointwise sweeps, ``batched_posterior_at`` and ``batched_predict`` on a
 posterior carried by ``convert.to_torch_posterior``; the engine table, the
-scalar engine's chunk cap, the TF32 scope and the ``mesh=`` batch check.
+scalar engine's chunk cap, the precision arguments of JAX's signatures
+and the ``mesh=`` batch check.
 (The fits are in ``tests/test_torch_parallel_fit.py``.)
 
 Data: N=16 points, a ConstantKernel × RBF kernel and a 1e-3 nugget, so
@@ -269,116 +270,6 @@ def test_scalar_chunk_cap():
     assert tb._scalar_chunk_cap(16384, 10, torch.float64, 80e9) == 1
 
 
-def test_tf32_scope_leaves_global_settings_unchanged(monkeypatch):
-    """``mxu_precision='high'`` and ``precision='high'`` carry the precision
-    in the products (3xTF32, ``blockchol._mm``), also into the backward,
-    which runs after the call has returned: TF32 is on only while the
-    three GEMMs of a split product are issued, and the global flags are as
-    before after every call, also after an error inside a product.  On the
-    CPU ``'high'`` splits nothing, so ``_split_gemms`` is forced here to
-    drive the split path through the forward and the backward."""
-    from gsum_tpu_torch.ops import batched_blocked_cholesky, blockchol
-
-    flags = torch.backends.cuda.matmul
-    before = (flags.allow_tf32, torch.get_float32_matmul_precision())
-    X, y, th = _data()
-    k = to_torch_kernel(_kernel_j())
-    tb.batched_lml_grid(k, t(X), t(y), t(th), engine='blocked',
-                        mxu_precision='high', **PRIOR)
-    assert (flags.allow_tf32, torch.get_float32_matmul_precision()) == before
-    with pytest.raises(ValueError, match='precision'):
-        batched_blocked_cholesky(torch.eye(3), precision='medium')
-
-    seen = []
-    matmul = torch.matmul
-
-    def spy(a, b):
-        seen.append(flags.allow_tf32)
-        return matmul(a, b)
-    monkeypatch.setattr(torch, 'matmul', spy)
-    monkeypatch.setattr(blockchol, '_split_gemms',
-                        lambda precision, x: precision == 'high')
-    grads = {}
-    for prec in (None, 'high'):
-        A = torch.eye(40, dtype=torch.float32).expand(2, 40, 40) * 2.0
-        A = (A + 0.1).requires_grad_(True)
-        L = batched_blocked_cholesky(A, block=16, precision=prec)
-        assert all(s is before[0] for s in seen) == (prec is None)
-        n_forward = len(seen)
-        L.sum().backward()
-        assert all(s is before[0] for s in seen[n_forward:]) == (
-            prec is None)
-        assert torch.isfinite(A.grad).all()
-        grads[prec] = A.grad
-        seen.clear()
-        assert flags.allow_tf32 == before[0]
-    # on the CPU the three f32 products drop lo·lo and lo's rounding:
-    # about 2⁻²¹ of |a||b|
-    torch.testing.assert_close(grads['high'], grads[None], rtol=1e-5,
-                               atol=1e-6)
-    outs = {}
-    Y = torch.linspace(-1, 1, 80).reshape(2, 40, 1)
-    for prec in (None, 'high'):
-        A = (torch.eye(40).expand(2, 40, 40) * 2.0 + 0.1).requires_grad_(True)
-        x, ld, ok = blockchol.blocked_spd_solve_logdet(A, Y, block=16,
-                                                       precision=prec)
-        assert all(s is before[0] for s in seen) == (prec is None)
-        seen.clear()
-        (x.sum() + ld.sum()).backward()
-        assert all(s is before[0] for s in seen) == (prec is None)
-        seen.clear()
-        outs[prec] = (x.detach(), ld.detach(), A.grad)
-    for got, want in zip(outs['high'], outs[None]):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert (flags.allow_tf32, torch.get_float32_matmul_precision()) == before
-
-    def fails(a, b):
-        assert flags.allow_tf32
-        raise RuntimeError('inside')
-    monkeypatch.setattr(torch, 'matmul', fails)
-    with pytest.raises(RuntimeError, match='inside'):
-        blockchol._mm(torch.ones(2, 2), torch.ones(2, 2), split=True)
-    assert (flags.allow_tf32, torch.get_float32_matmul_precision()) == before
-
-
-def test_3xtf32_products_against_one_tf32_product(monkeypatch):
-    """The split of ``blockchol._mm``: hi and lo are TF32 values (their
-    low 13 bits are zero), so a TF32 GEMM takes them exactly whatever its
-    own input rounding, and hi + lo is within 2⁻²³ of x.  With TF32's
-    input rounding emulated (the operands cut to 10 mantissa bits, the
-    products in f64), one product keeps only 2⁻¹¹ per operand and the
-    3xTF32 product is within 2⁻²⁰·(|a||b|) elementwise (the dropped lo·lo
-    term is 2⁻²², lo's rounding 2⁻²³ in each cross term, the f32 output
-    2⁻²⁴)."""
-    from gsum_tpu_torch.ops import blockchol
-
-    g = torch.Generator().manual_seed(0)
-    a = torch.randn(3, 64, 96, generator=g)
-    b = torch.randn(3, 96, 48, generator=g)
-    low = (1 << 13) - 1
-    hi, lo = blockchol._tf32_parts(a)
-    assert not (hi.view(torch.int32) & low).any()
-    assert not (lo.view(torch.int32) & low).any()
-    assert ((a - hi).abs() <= a.abs() * 2.0 ** -11).all()
-    assert ((a - hi - lo).abs() <= a.abs() * 2.0 ** -23).all()
-
-    def cut(x):
-        return (x.contiguous().view(torch.int32)
-                & blockchol._TF32_MASK).view(torch.float32).double()
-
-    monkeypatch.setattr(torch, 'matmul',
-                        lambda x, y: (cut(x) @ cut(y)).float())
-    exact = a.double() @ b.double()
-    scale = a.double().abs() @ b.double().abs()
-    err3 = ((blockchol._mm(a, b, split=True).double() - exact).abs()
-            / scale).max().item()
-    err1 = ((torch.matmul(a, b).double() - exact).abs() / scale).max().item()
-    assert err3 <= 2.0 ** -20
-    assert err1 > 2.0 ** -14 > 64 * err3
-
-
-
-
 @pytest.mark.parametrize('call', ['lml_grid', 'fit', 'pointwise',
                                   'posterior_at', 'predict'])
 def test_mesh_raises(call):
@@ -457,22 +348,116 @@ def test_numpy_inputs_go_to_the_card():
     assert out.device.type == 'cpu'
 
 
-def test_batched_chol_logpdf_precision_on_the_cpu():
-    """``precision='high'`` changes nothing on the CPU (TF32 is a CUDA
-    GEMM mode) and leaves the global flag as it was; an unknown precision
-    is refused."""
-    from gsum_tpu_torch.ops import batched_chol_logpdf
+def _wide_data(n=150, g=3):
+    """f32 CPU data at N = ``n``, above the blocked engine's 128-wide block,
+    so that its column-block loop runs: inputs, two curves and ``g`` θ
+    rows."""
+    rng = np.random.RandomState(9)
+    X = torch.linspace(0, 1, n)[:, None]
+    y = torch.tensor(rng.randn(n, 2), dtype=torch.float32)
+    th = torch.log(torch.tensor([[1.0, 0.2], [1.5, 0.3], [0.7, 0.5]][:g]))
+    return X, y, th
 
+
+def _spd(n=40, seed=0):
+    """(2, n, n) f32 SPD matrices, well conditioned."""
+    A = torch.randn(2, n, n, generator=torch.Generator().manual_seed(seed))
+    return A @ A.mT / n + torch.eye(n)
+
+
+def _grads(out, *leaves):
+    """``out`` (a tuple of tensors) followed by the gradients of its sum
+    with respect to ``leaves``."""
+    gs = torch.autograd.grad(sum(o.sum() for o in out), leaves)
+    return tuple(o.detach() for o in out) + gs
+
+
+def _chol_logpdf(prec):
+    from gsum_tpu_torch.ops import batched_chol_logpdf
     rng = np.random.RandomState(9)
     X = torch.tensor(rng.rand(2, 300, 2), dtype=torch.float32)
     y = torch.tensor(rng.randn(2, 300, 3), dtype=torch.float32)
-    before = torch.backends.cuda.matmul.allow_tf32
-    lo = batched_chol_logpdf(X, y, 0.3, 1.0, 1e-2, method='blocked',
-                             block=128)
-    hi = batched_chol_logpdf(X, y, 0.3, 1.0, 1e-2, method='blocked',
-                             block=128, precision='high')
-    assert torch.equal(lo, hi)
-    assert torch.backends.cuda.matmul.allow_tf32 == before
-    with pytest.raises(ValueError, match='precision'):
-        batched_chol_logpdf(X, y, 0.3, 1.0, 1e-2, method='blocked',
-                            block=128, precision='low')
+    return (batched_chol_logpdf(X, y, 0.3, 1.0, 1e-2, method='blocked',
+                                block=128, precision=prec),)
+
+
+def _chol_solve_logdet(prec):
+    from gsum_tpu_torch.ops import blocked_chol_solve_logdet
+    return blocked_chol_solve_logdet(_spd(), torch.ones(2, 40, 3), block=16,
+                                     precision=prec)
+
+
+def _factor_cho_solve(prec):
+    from gsum_tpu_torch.ops import blocked_cho_solve, blocked_factor
+    L, minvs = blocked_factor(_spd(), block=16, precision=prec)
+    return L, blocked_cho_solve(L, minvs, torch.ones(2, 40, 3),
+                                precision=prec)
+
+
+def _blocked_cholesky(prec):
+    from gsum_tpu_torch.ops import batched_blocked_cholesky
+    A = _spd().requires_grad_(True)
+    L = batched_blocked_cholesky(A, block=16, precision=prec)
+    return _grads((L * torch.linspace(0, 1, 40),), A)
+
+
+def _spd_solve_logdet(prec):
+    from gsum_tpu_torch.ops import blocked_spd_solve_logdet
+    A = _spd().requires_grad_(True)
+    Y = torch.linspace(-1, 1, 240).reshape(2, 40, 3).requires_grad_(True)
+    x, ld, ok = blocked_spd_solve_logdet(A, Y, block=16, precision=prec)
+    assert ok.all()
+    return _grads((x, ld), A, Y)
+
+
+def _cgp_lml_grid(prec):
+    from gsum_tpu_torch.ops import gridlml as tg
+    Rs = _spd().requires_grad_(True)
+    lml = tg.cgp_lml_grid(Rs, torch.ones(40, 2), torch.ones(40, 1), 0.3, 0,
+                          3.0, 1.5, engine='blocked', block=16,
+                          mxu_precision=prec)
+    return _grads((lml,), Rs)
+
+
+def _lml_grid(prec):
+    X, y, th = _wide_data()
+    th.requires_grad_(True)
+    lml = tb.batched_lml_grid(to_torch_kernel(_kernel_j()), X, y, th,
+                              engine='blocked', precision='f32', df=3,
+                              scale=1.5, nugget=1e-2, mxu_precision=prec)
+    return _grads((lml,), th)
+
+
+def _fit(prec):
+    X, y, _ = _wide_data()
+    post = tb.batched_fit(to_torch_kernel(_kernel_j()), X, y.T, df=3,
+                          scale=1.5, nugget=1e-2, maxiter=2,
+                          engine='blocked', precision='f32',
+                          mxu_precision=prec)
+    return post.lml, post.theta
+
+
+@pytest.mark.parametrize('call, name', [
+    (_chol_logpdf, 'precision'), (_chol_solve_logdet, 'precision'),
+    (_factor_cho_solve, 'precision'), (_blocked_cholesky, 'precision'),
+    (_spd_solve_logdet, 'precision'), (_cgp_lml_grid, 'mxu_precision'),
+    (_lml_grid, 'mxu_precision'), (_fit, 'mxu_precision')],
+    ids=lambda v: getattr(v, '__name__', v).strip('_'))
+def test_batched_chol_logpdf_precision_on_the_cpu(call, name):
+    """Every public entry that takes ``precision`` / ``mxu_precision``
+    computes in full f32 whatever its value: ``'high'`` gives None's
+    results and gradients bit for bit (f32, N above the block, so that
+    the blocked loop runs), the global matmul settings are as before, and
+    an unknown value is refused with the argument's name."""
+    flags = torch.backends.cuda.matmul
+    before = (flags.allow_tf32, torch.get_float32_matmul_precision())
+    want = call(None)
+    got = call('high')
+    assert (flags.allow_tf32, torch.get_float32_matmul_precision()) == before
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w)
+    torch.testing.assert_close(call('HIGHEST'), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match=name):
+        call('medium')
